@@ -1,20 +1,20 @@
 """Aux subsystems: custom coefficient engine, checkpoint/resume,
-roofline reporting."""
+roofline reporting, timing."""
 
 import numpy as np
 import jax.numpy as jnp
 import pytest
 
-from lorastencil_tpu import engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.utils import checkpoint, profiling, reference
+from lorastencil import engine
+from lorastencil.models import shapes
+from lorastencil.utils import checkpoint, profiling, reference
 
 
 def _custom_spec_reference(S, grid, steps, halo):
     """fp64 ground truth for an arbitrary coefficient matrix."""
     import dataclasses
 
-    from lorastencil_tpu.models.shapes import SeparableTerm, StencilSpec
+    from lorastencil.models.shapes import SeparableTerm, StencilSpec
 
     r = (S.shape[0] - 1) // 2
     spec = StencilSpec(
@@ -76,188 +76,82 @@ def test_checkpoint_resume(tmp_path):
     assert err < 1e-5
 
 
+H100 = "NVIDIA H100 80GB HBM3"
+
+
 def test_roofline_report():
+    """star2d1r fp32 on an H100: 8 B per cell-step over 3.35 TB/s, 25
+    taps x 2 FLOP over 67 TFLOP/s -> memory-bound at 418.75 GCells/s."""
     spec = shapes.get_shape("star2d1r")
-    r = profiling.stencil_roofline(spec, (256, 1024), fused_steps=4)
-    assert r.bw_bound_gcells > 0 and r.compute_bound_gcells > 0
-    assert "bound" in r.human()
+    r = profiling.stencil_roofline(spec, H100)
+    assert r.bytes_per_cell_step == 8.0
+    assert r.flops_per_cell_step == 50.0
+    assert r.bw_bound_gcells == pytest.approx(418.75)
+    assert r.compute_bound_gcells == pytest.approx(1340.0)
+    assert r.bound == "memory" and r.governing_gcells == r.bw_bound_gcells
 
 
-def test_roofline_matches_measured_flagship_probe():
-    """The tool's accounting must stay in sync with the on-device
-    measurements it is calibrated against (round-3 VERDICT item 5):
-
-    - flagship bw bound within 15% of the 65.9 GCells/s zero-compute
-      DMA-pipeline probe (PERF.md),
-    - VPU stream ~29 ops/cell -> ~72 GCells/s, MXU stream ~0.80
-      KFLOP/cell -> ~207 GCells/s (both hidden under the DMA bound;
-      MXU rate = the round-5 long-region 166.1 TFLOP/s chain probe).
-    """
+def test_roofline_unknown_device():
+    """An unknown device gets no share -- never an assumed peak."""
     spec = shapes.get_shape("star2d1r")
-    r = profiling.stencil_roofline(spec, (256, 2048),
-                                   algorithm="mxu_hybrid1")
-    assert abs(r.bw_bound_gcells - 65.9) / 65.9 < 0.15, r
-    assert abs(r.vpu_ops_per_cell_step - 29) <= 3, r
-    assert abs(r.vpu_bound_gcells - 72) / 72 < 0.15, r
-    assert abs(r.mxu_flops_per_cell_step - 804) <= 40, r
-    assert abs(r.mxu_bound_gcells - 207) / 207 < 0.15, r
-    assert r.bound == "bw", r
-    # pure-VPU exact path additionally pays the column conv
-    rv = profiling.stencil_roofline(spec, (256, 2048),
-                                    algorithm="vpu_roll")
-    assert rv.vpu_ops_per_cell_step > r.vpu_ops_per_cell_step
-    assert rv.mxu_flops_per_cell_step == 0
+    assert profiling.peak("cpu") is None
+    assert profiling.stencil_roofline(spec, "cpu") is None
+    assert profiling.stencil_roofline(spec, "NVIDIA A100-SXM4-80GB") is None
 
 
-def test_roofline_3d_and_1d_match_probes():
-    """3-D slab probe 86.4 GCells/s x its engine's 7.625 B/cell =
-    659 GB/s pattern rate (round-5 long-region steps=512 re-probe);
-    star3d1r k=2 slab-32 models 7.0625 B/cell -> 93.3 GCells/s bw
-    bound.  1-D lanes center-only probe 604 GB/s -> 1d2r k=4 bw bound
-    226.5 GCells/s.  The round-4 short-region calibrations (64.1 /
-    "~97") understated both, and the fp32 1-D kernels are MXU-stream
-    bound under the corrected ceilings (3 state parts x 2*128
-    MACs/lane x the 128/S lane amp, at the long-region 166.1 TFLOP/s
-    chain rate)."""
-    s3 = shapes.get_shape("star3d1r")
-    r3 = profiling.stencil_roofline(s3, (128, 256), fused_steps=2,
-                                    slab=32)
-    assert abs(r3.bytes_per_cell_step - 7.0625) < 0.01, r3
-    assert abs(r3.bw_bound_gcells - 93.3) / 93.3 < 0.02, r3
+def test_roofline_fused_and_dtypes():
+    """Fused passes divide the bytes; bf16 halves them; float64 doubles
+    them and uses the fp64 peak; the df64 pair chain has no model."""
+    s3 = shapes.get_shape("box3d1r")
+    r = profiling.stencil_roofline(s3, H100, fused_steps=4)
+    assert r.bytes_per_cell_step == 2.0
+    rb = profiling.stencil_roofline(s3, H100, dtype="bfloat16")
+    assert rb.bytes_per_cell_step == 4.0
+    r64 = profiling.stencil_roofline(s3, H100, dtype="float64")
+    assert r64.bytes_per_cell_step == 16.0
+    assert r64.compute_bound_gcells == pytest.approx(67e3 / 54.0)
+    assert profiling.stencil_roofline(s3, H100, dtype="df64") is None
     s1 = shapes.get_shape("1d2r")
-    r1 = profiling.stencil_roofline(s1, (8, 128), fused_steps=4,
-                                    algorithm="mxu")
-    assert abs(r1.bw_bound_gcells - 226.5) / 226.5 < 0.02, r1
-    assert r1.bound == "mxu", r1
-    # 1024 MACs/interior cell: 2*128 x 3 parts x (128/(128-2*16))
-    assert abs(r1.mxu_flops_per_cell_step - 1024.0) < 1.0, r1
-    assert abs(r1.mxu_bound_gcells - 162.2) / 162.2 < 0.02, r1
-    # 1d1r's effective radius is 3 (zero end taps): tighter lane amp
-    r11 = profiling.stencil_roofline(shapes.get_shape("1d1r"), (8, 128),
-                                     fused_steps=4, algorithm="mxu")
-    assert abs(r11.mxu_bound_gcells - 175.7) / 175.7 < 0.02, r11
+    assert profiling.stencil_roofline(s1, H100).flops_per_cell_step == 18.0
 
 
-def test_bf16_roofline_matches_probes():
-    """The bf16 pattern-bandwidth ceilings (MEASURED.hbm_*_bf16_gbps)
-    must stay in sync with the round-5 device probes that set them
-    (tools/pipeline_probe.py; the bf16 analog of the fp32 probe pins
-    above): for each probe config, MEASURED rate == probe GCells/s x
-    the probe engine's OWN modeled bytes/cell/step, to 2%.  Probe
-    readings (v5e, 2026-08): 2-D 140.3, 3-D 164.3, 1-D 711.87
-    GCells/s (3-D/1-D from the round-5 long-region re-probes;
-    the 1-D probe is the center-only true-zero-compute variant)."""
+def test_peak_table_h100():
+    """The peak table is the H100 SXM data sheet."""
+    pk = profiling.peak(H100)
+    assert (pk.hbm_gbps, pk.fp32_tflops, pk.fp64_tflops) == (3350.0, 67.0,
+                                                             67.0)
+    assert "data sheet" in pk.source
+
+
+def test_flops_forms_and_share():
+    """The separable form counts per-term taps plus residue taps; the
+    dense form counts nonzero dense taps."""
+    star = shapes.get_shape("star2d1r")
+    assert profiling.flops_per_cell_step(star) == 50.0
+    # two 5-tap convs (zero end taps skipped) + 8 residue points
+    assert profiling.flops_per_cell_step(star, "separable") == 36.0
+    box = shapes.get_shape("box2d3r")
+    assert profiling.flops_per_cell_step(box) == 98.0
+    r = profiling.stencil_roofline(star, H100)
+    assert r.share(r.governing_gcells / 2) == pytest.approx(0.5)
+
+
+def test_suite_rows_off_card():
+    """Suite rows name the device; off the card (here) they carry no
+    roofline share."""
     import os
     import sys
 
-    sys.path.insert(0, os.path.join(os.path.dirname(os.path.dirname(
-        os.path.abspath(__file__))), "tools"))
-    import pipeline_probe as probe
-
-    probed = {"windowed_2d": (140.3, "hbm_windowed_2d_bf16_gbps"),
-              "slab_3d": (164.3, "hbm_slab_3d_bf16_gbps"),
-              "lanes_1d": (711.87, "hbm_lanes_1d_bf16_gbps")}
-    for label, ndim, _interior, _steps, _pipe, overrides in probe.PROBES:
-        gcells, key = probed[label]
-        # tiny interior: the roofline depends on tile/layout geometry,
-        # not the grid extent, and a full-size CPU engine build is slow
-        interior = {1: (1 << 16,), 2: (512, 4096),
-                    3: (64, 128, 256)}[ndim]
-        cfg = engine.EngineConfig(dtype="bfloat16", **overrides)
-        eng = engine.StencilEngine(probe.probe_spec(ndim), interior, cfg)
-        roof = profiling.engine_roofline(eng)
-        derived = gcells * roof.bytes_per_cell_step
-        want = profiling.MEASURED[key]
-        assert abs(derived - want) / want < 0.02, (label, derived, want)
-        # ...and the probe spec itself is bandwidth-bound under the
-        # model (near-zero arithmetic), so the bound reproduces the
-        # probe reading
-        assert abs(roof.bw_bound_gcells - gcells) / gcells < 0.02, roof
-
-
-def test_bf16_stream_costs_model():
-    """Spot-check the as-built bf16 stream pricing against the kernel
-    structure (round-5 TODO item 4): single-part state (a third of the
-    fp32 hybrid1 MXU passes, no 3-part split), full column offload, and
-    cast accounting -- the honest device rows sit at 0.43-1.00 of the
-    resulting bounds (tools/remodel_rooflines.py output, PERF.md)."""
-    star = shapes.get_shape("star2d1r")
-    fp32 = profiling.stencil_roofline(star, (256, 2048), dtype_bytes=4,
-                                      algorithm="mxu_hybrid1")
-    # one state part: a third of the fp32 3-part MXU FLOPs (residue
-    # offload disabled so only the column-conv streams are compared)
-    bf16_nores = profiling.stencil_roofline(star, (256, 2048),
-                                            dtype_bytes=2,
-                                            algorithm="mxu_hybrid1")
-    assert bf16_nores.mxu_flops_per_cell_step == pytest.approx(
-        fp32.mxu_flops_per_cell_step / 3)
-    # res_mxu=True mirrors the engine's bf16 residue-offload default
-    # (engine.residue_mxu_policy; engine_roofline passes it through):
-    # residue group matmuls move to the MXU stream, relieving the VPU
-    bf16 = profiling.stencil_roofline(star, (256, 2048), dtype_bytes=2,
-                                      algorithm="mxu_hybrid1",
-                                      res_mxu=True)
-    assert (bf16.mxu_flops_per_cell_step
-            > bf16_nores.mxu_flops_per_cell_step)
-    assert bf16.vpu_ops_per_cell_step < bf16_nores.vpu_ops_per_cell_step
-    # no 3-part split on the VPU stream: strictly cheaper than fp32
-    assert bf16.vpu_ops_per_cell_step < fp32.vpu_ops_per_cell_step
-    # star2d1r bf16 is vpu-bound at ~105 GCells/s (flagship 99.6 = 95%)
-    assert bf16.bound == "vpu"
-    assert bf16.governing_gcells == pytest.approx(105.0, rel=0.02)
-    # box2d1r offloads BOTH column terms at bf16 (cap 99 vs fp32's 1):
-    # vpu-bound at ~91 GCells/s, the tier's tightest config (1.00)
-    box = shapes.get_shape("box2d1r")
-    bbox = profiling.stencil_roofline(box, (256, 2048), dtype_bytes=2,
-                                      algorithm="mxu_hybrid1",
-                                      res_mxu=True)
-    assert bbox.governing_gcells == pytest.approx(91.3, rel=0.02)
-    # 3-D vpu paths pay the fp32 ops plus per-plane casts
-    s3 = shapes.get_shape("star3d1r")
-    f3 = profiling.stencil_roofline(s3, (128, 256), dtype_bytes=4,
-                                    algorithm="vpu", fused_steps=2)
-    b3 = profiling.stencil_roofline(s3, (128, 256), dtype_bytes=2,
-                                    algorithm="vpu", fused_steps=2)
-    assert b3.vpu_ops_per_cell_step > f3.vpu_ops_per_cell_step
-
-
-def test_engine_roofline_and_suite_rows():
-    """engine_roofline derives the per-row roofline from a built engine
-    (suite integration, round-3 VERDICT item 5); tiers without a ceiling
-    model return None; suite rows carry pct_of_governing_bound."""
-    from lorastencil_tpu import engine as eng_mod
-
-    eng = eng_mod.StencilEngine.for_shape("star2d1r", (8192, 8192))
-    r = profiling.engine_roofline(eng)
-    assert r is not None and r.governing_gcells == min(
-        r.bw_bound_gcells, r.compute_bound_gcells)
-    assert r.bound == "bw"
-    e3 = eng_mod.StencilEngine.for_shape("box3d1r", (64, 128, 256))
-    assert profiling.engine_roofline(e3) is not None
-    e1 = eng_mod.StencilEngine.for_shape("1d1r", (1 << 24,))
-    assert profiling.engine_roofline(e1) is not None
-    # df64 Pallas tiers carry the pair-kernel cost model (vpu-governed
-    # at the suite extents; calibrated so honest device rows sit at
-    # 26-98% of governing, never above)
-    for name, interior in [("star2d1r", (64, 256)), ("1d1r", (4096,)),
-                           ("box3d1r", (32, 64, 256))]:
-        edf = eng_mod.StencilEngine.for_shape(name, interior,
-                                              dtype="df64")
-        rdf = profiling.engine_roofline(edf)
-        assert rdf is not None and rdf.vpu_ops_per_cell_step > 0
-        assert rdf.mxu_flops_per_cell_step == 0.0
-        assert 0 < rdf.governing_gcells < 100
-    # ... but the wide-radius XLA pair fallback has no ceiling model
-    exla = eng_mod.StencilEngine.for_shape("1d1r", (4096,),
-                                           dtype="df64", backend="xla")
-    assert profiling.engine_roofline(exla) is None
-
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
     import benchmarks.suite as suite
 
-    res = suite.run_config("star2d1r", (64, 256), 2, pipeline=1)
-    assert res.pct_of_governing_bound is not None
-    assert res.roofline_bound in ("bw", "vpu", "mxu")
-    assert res.governing_bound_gcells > 0
+    row = suite.run_config("star2d1r", (64, 256), 2, repeats=2)
+    assert row["device"]["platform"] == "cpu"
+    assert row["roofline_share"] is None and row["roofline_bound"] is None
+    assert row["backend"] == "xla" and row["gcells_per_s"] > 0
+    crow = suite.run_config("custom2d_asym5", (64, 256), 2, repeats=1)
+    assert crow["shape"] == "custom2d_asym5"
 
 
 def test_profiler_trace_smoke(tmp_path):
@@ -275,7 +169,7 @@ def test_profiler_trace_smoke(tmp_path):
 def test_orbax_sharded_checkpoint(tmp_path):
     """Async orbax checkpoint of sharded state: save, restore with the
     same sharding, bit-identical."""
-    from lorastencil_tpu.utils import checkpoint
+    from lorastencil.utils import checkpoint
 
     if not checkpoint.orbax_available():
         import pytest
@@ -285,7 +179,7 @@ def test_orbax_sharded_checkpoint(tmp_path):
     import jax.numpy as jnp
     from jax.sharding import NamedSharding, PartitionSpec as P
 
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     mesh = domain.make_mesh((4, 2))
     x = jnp.arange(32 * 256, dtype=jnp.float32).reshape(32, 256)
@@ -303,135 +197,51 @@ def test_orbax_sharded_checkpoint(tmp_path):
         ck.close()
 
 
-def test_autotune_tile_measures_and_caches(tmp_path, monkeypatch):
-    from lorastencil_tpu.utils import autotune
+def test_timing_quartiles():
+    """Timing statistics: median and quartiles of the samples."""
+    from lorastencil.utils import metrics
 
-    monkeypatch.setenv("LORASTENCIL_CACHE", str(tmp_path))
-    cands = [(8, 128), (16, 128)]
-    tile = autotune.autotune_tile("star2d1r", (16, 128), steps=1,
-                                  candidates=cands)
-    assert tile in [tuple(c) for c in cands]
-    import json
-
-    cache = json.load(open(tmp_path / "autotune.json"))
-    (entry,) = cache.values()
-    assert tuple(entry["tile"]) == tile
-    # second call hits the cache (poison the candidate list to prove it)
-    tile2 = autotune.autotune_tile("star2d1r", (16, 128), steps=1,
-                                   candidates=[(999, 999)])
-    assert tile2 == tile
+    t = metrics.Timing.of([5.0, 1.0, 3.0, 2.0, 4.0])
+    assert (t.median_s, t.q1_s, t.q3_s, t.runs) == (3.0, 2.0, 4.0, 5)
 
 
-def test_autotune_seed_file(tmp_path, monkeypatch):
-    """The committed v5e seed (round-3 VERDICT item 7) covers every
-    BASELINE config at cache version v3, and tools/seed_autotune.py
-    merges it into the local cache without clobbering fresher local
-    entries."""
-    import json
-    import os
+def test_time_run_counts():
+    """time_run warms up once, then times ``repeats`` calls, each
+    ending in block_until_ready."""
+    from lorastencil.utils import metrics
 
-    seed_path = os.path.join(os.path.dirname(__file__), "..",
-                             "benchmarks", "autotune_seed_v5e.json")
-    seed = json.load(open(seed_path))
-    from lorastencil_tpu.utils.autotune import _KEY_VERSION
+    calls = []
 
-    baseline = ["1d1r|", "1d2r|", "star2d1r|", "box2d1r|", "star2d3r|",
-                "box2d3r|", "star3d1r|", "box3d1r|"]
-    for shape in baseline:
-        hits = [k for k in seed if f"|{shape}" in f"|{k}"
-                or shape in k]
-        assert hits, f"seed missing {shape}"
-    for k in seed:
-        assert k.startswith(_KEY_VERSION + "|"), k
+    def fn(x):
+        calls.append(x)
+        return jnp.asarray(x) * 2
 
-    monkeypatch.setenv("LORASTENCIL_CACHE", str(tmp_path))
-    # a fresher local entry must survive the merge
-    local_key = next(iter(seed))
-    (tmp_path / "autotune.json").write_text(
-        json.dumps({local_key: {"params": {"local": True}}}))
-    import subprocess
-    import sys
-
-    r = subprocess.run(
-        [sys.executable, os.path.join(os.path.dirname(__file__), "..",
-                                      "tools", "seed_autotune.py")],
-        capture_output=True, text=True,
-        env=dict(os.environ, LORASTENCIL_CACHE=str(tmp_path),
-                 JAX_PLATFORMS="cpu"))
-    assert r.returncode == 0, r.stdout + r.stderr
-    merged = json.load(open(tmp_path / "autotune.json"))
-    assert len(merged) == len(seed)
-    assert merged[local_key] == {"params": {"local": True}}
+    t, out = metrics.time_run(fn, 3.0, repeats=6)
+    assert len(calls) == 7 and t.runs == 6 and float(out) == 6.0
+    assert 0 < t.q1_s <= t.median_s <= t.q3_s
 
 
-def test_autotuned_engine(tmp_path, monkeypatch):
-    from lorastencil_tpu.utils import autotune
+def test_require_gpu_on_cpu():
+    """The measurement entry points refuse the CPU: require_gpu exits
+    non-zero and names what JAX found."""
+    from lorastencil import backend
 
-    monkeypatch.setenv("LORASTENCIL_CACHE", str(tmp_path))
-    eng = autotune.autotuned_engine("star2d1r", (16, 128))
-    assert eng.layout.tile[0] % 8 == 0 and eng.layout.tile[1] % 128 == 0
-
-
-def test_autotune_tile_3d(tmp_path, monkeypatch):
-    from lorastencil_tpu.utils import autotune
-
-    monkeypatch.setenv("LORASTENCIL_CACHE", str(tmp_path))
-    cands = [(8, 128), (16, 128)]
-    tile = autotune.autotune_tile_3d("box3d1r", (4, 16, 128), steps=1,
-                                     candidates=cands)
-    assert tile in [tuple(c) for c in cands]
-    eng = autotune.autotuned_engine("box3d1r", (4, 16, 128))
-    assert eng.layout.tile == tile
+    with pytest.raises(SystemExit) as e:
+        backend.require_gpu()
+    assert "cpu" in str(e.value.code)
 
 
-def test_df64_roofline_matches_eft_probe():
-    """The df64 compute ceiling must stay in sync with the on-device
-    EFT probe it is calibrated against (round-5 VERDICT item 4 -- this
-    replaces the round-4 constant that was circularly calibrated on
-    the best honest device row):
+def test_card_info_without_nvidia_smi(monkeypatch):
+    """card_info reports nvidia-smi's line, or why there is none."""
+    from lorastencil import backend
 
-    - tools/df64_eft_probe.py prices one full-product 'pair' entry at
-      exactly 48 units (4xROLL + FOLD + SPLIT + PRODUCT) and its
-      arithmetic-only part at 36 units; the no-roll probe variant read
-      5.27 T priced-units/s on v5e -> 5.27 * 36/48 = 3.95 T
-      arith-units/s (PERF.md round 5);
-    - the roofline's governing compute model is ARITHMETIC-ONLY
-      (rolls measured overlapping with the EFT arithmetic in real
-      kernels: honest rows implied rates above every roll-mix probe
-      rate but below the no-roll rate).
-    """
-    import os as _os
-    import sys as _sys
+    monkeypatch.setenv("PATH", "/nonexistent")
+    assert backend.card_info().startswith("nvidia-smi unavailable")
 
-    _sys.path.insert(0, _os.path.join(_os.path.dirname(_os.path.dirname(
-        _os.path.abspath(__file__))), "tools"))
-    import df64_eft_probe as probe
 
-    from lorastencil_tpu.ops import pallas_df64 as P
-
-    # the probe's priced mix must track the cost model's constants
-    assert probe.N_ENTRIES * probe.UNITS_PER_ENTRY == 192.0
-    assert probe.UNITS_PER_ENTRY == (4 * P._COST_ROLL + P._COST_FOLD
-                                     + P._COST_SPLIT + P._COST_PRODUCT)
-    arith_per_entry = P._COST_FOLD + P._COST_SPLIT + P._COST_PRODUCT
-    assert arith_per_entry == 36.0
-    # MEASURED rate == probe-derived 5.27 * arith/priced, to 2%
-    derived = 5.27 * arith_per_entry / probe.UNITS_PER_ENTRY
-    got = profiling.MEASURED["vpu_df64_arith_units_teraops"]
-    assert abs(got - derived) / derived < 0.02, (got, derived)
-    # arith-only cost excludes rolls and is what the roofline uses
-    spec = shapes.get_shape("star2d1r")
-    full = P.df64_cost_per_cell(spec, "vpu_sep")
-    arith = P.df64_cost_per_cell(spec, "vpu_sep", arith_only=True)
-    assert arith < full
-    eng = engine.StencilEngine.for_shape("star2d1r", (8192, 8192),
-                                          dtype="df64")
-    r = profiling.engine_roofline(eng)
-    assert abs(r.vpu_bound_gcells - got * 1000.0 / arith) < 1e-6
-    # the w == +-1 shortcut pricing: a unit-weight pair entry carries
-    # no product/split (the round-4 model charged both, pushing honest
-    # 2-D rows above their own bound)
-    e1 = P._entry_cost("pair", 1, (1.0, 0.0, 1.0, 0.0), roll_cost=0.0)
-    e2 = P._entry_cost("pair", 1, (0.5, 0.25, 0.5, 0.0), roll_cost=0.0)
-    assert e1 == 2 * P._COST_FOLD
-    assert e2 == P._COST_FOLD + P._COST_SPLIT + P._COST_PRODUCT
+def test_peak_table_entries():
+    """Every roofline needs a known device; the table holds each entry's
+    source."""
+    for kind, pk in profiling.PEAKS.items():
+        assert pk.hbm_gbps > 0 and pk.fp32_tflops > 0 and pk.source
+        assert profiling.peak(kind) is pk

@@ -2,10 +2,11 @@
 fp32 pairs (ops/df64.py).
 
 The reference computes in native fp64 (``DATA_TYPE double``,
-``/root/reference/src/1d/1d_utils.h:44``); the TPU has no fp64 unit, so
-this tier carries ~48 mantissa bits as (hi, lo) fp32 pairs with
-error-free transformations.  Ground truth for every comparison is the
-NumPy fp64 reference (utils/reference.py).
+``reference/src/1d/1d_utils.h:44``); this tier carries ~48 mantissa
+bits as (hi, lo) fp32 pairs with error-free transformations, through the
+plain pair step (ops/plain.py, ``pair=True``) on every path.  Ground
+truth for every comparison is the NumPy fp64 reference
+(utils/reference.py).
 """
 
 import os
@@ -15,10 +16,10 @@ import jax
 import numpy as np
 import pytest
 
-from lorastencil_tpu import cli, engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.ops import df64
-from lorastencil_tpu.utils import reference
+from lorastencil import cli, engine
+from lorastencil.models import shapes
+from lorastencil.ops import df64
+from lorastencil.utils import reference
 
 INTERIORS = {1: (300,), 2: (40, 200), 3: (6, 20, 150)}
 
@@ -126,46 +127,33 @@ def test_df64_checksum_and_internal_api():
     cs = eng.run_checksum(g0, 2)
     # checksum sums each fp32 plane on device -- fp32 reduction noise
     assert abs(cs - out.sum()) <= 1e-3 * max(1.0, abs(out.sum()))
-    # internal round trip (2-D df64 runs the Pallas pair kernel, so
-    # the pair planes live on the internal 2-D layout)
+    # internal round trip: the pair planes live on the internal layout
     state = eng.to_internal(g0)
-    assert eng.df64_pallas
     assert state.shape == (2,) + eng.layout.shape
     out2 = eng.from_internal(eng.run_internal(state, 2))
     assert np.abs(out2 - out).max() <= 1e-12 * max(1.0, np.abs(out).max())
 
 
 def test_df64_config_guards():
-    # every dim has a df64 Pallas kernel (ops/pallas_df64{_1d,,_3d}.py);
-    # the 1-D tier is radius-uniform to 127 (lanes kernel <= 32, flat
-    # pair kernel 33..127); only a pure-center-tap spec (effective
-    # radius 0) keeps the XLA pair path
-    center = np.zeros(9)  # radius 4, but only the center tap is nonzero
+    # a pure-center-tap spec (radius 4, one nonzero tap) runs like any
+    center = np.zeros(9)
     center[4] = 1.5
-    assert engine.StencilEngine.for_coeffs(
-        center, (4096,), dtype="df64").df64_pallas is False
-    with pytest.raises(ValueError, match="XLA pair path"):
-        engine.StencilEngine.for_coeffs(
-            center, (4096,), dtype="df64", backend="pallas")
-    with pytest.raises(ValueError, match="1-D"):
-        # 1-D pair kernel is lane rolls only
-        engine.StencilEngine.for_shape(
-            "1d1r", (4096,), dtype="df64", algorithm="vpu_sep")
-    with pytest.raises(ValueError, match="3-D"):
-        # the 3-D pair slab kernel's only path is separable slices
-        engine.StencilEngine.for_shape(
-            "box3d1r", (6, 20, 150), dtype="df64", algorithm="vpu_roll")
+    eng = engine.StencilEngine.for_coeffs(center, (4096,), dtype="df64")
+    g0 = _padded_input(eng.spec, (4096,), seed=2)
+    want = reference.run(g0, eng.spec, 2)
+    assert np.abs(eng.run(g0, 2) - want).max() <= 1e-12 * np.abs(want).max()
     with pytest.raises(ValueError, match="backend"):
         engine.StencilEngine.for_shape(
             "star2d1r", (40, 200), dtype="df64", backend="mxu")
+    with pytest.raises(ValueError, match="GPU"):
+        # the CUDA kernel has no df64 path, and no interpret mode
+        engine.StencilEngine.for_shape(
+            "star2d1r", (40, 200), dtype="df64", backend="kernel")
     with pytest.raises(ValueError, match="run_diff"):
         engine.StencilEngine.for_shape(
             "star2d1r", (40, 200), dtype="df64").run_diff(
                 np.zeros((46, 206)), 1)
-    from lorastencil_tpu.utils import autotune
-    with pytest.raises(ValueError, match="autotune"):
-        autotune.autotune_params("star2d1r", (40, 200), dtype="df64")
-    with pytest.raises(SystemExit):  # argparse p.error
+    with pytest.raises(SystemExit):  # argparse p.error: no such flag
         cli.main(["star2d1r", "40", "200", "3", "--dtype", "df64",
                   "--autotune"])
 
@@ -193,66 +181,30 @@ REPO_ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
 def test_suite_run_config_df64():
     """benchmarks.suite.run_config measures the df64 tier (pair-shaped
-    state; the Pallas pair kernels tag their algorithm, the wide-radius
-    1-D XLA fallback keeps the xla-df64 tag)."""
+    state) and names the device; off the card no roofline share."""
     sys.path.insert(0, REPO_ROOT)
     from benchmarks.suite import run_config
 
-    r = run_config("star2d1r", (64, 128), 2, dtype="df64")
-    # 'auto' resolves to the separable low-rank pair kernel for
-    # star2d1r (static op count 2x below the dense roll path)
-    assert r.backend == "pallas-df64-vpu_sep"
-    assert r.gcells_per_s > 0
-    r1 = run_config("1d1r", (4096,), 2, dtype="df64")
-    assert r1.backend == "pallas-df64-vpu_roll"
-    assert r1.gcells_per_s > 0
+    r = run_config("star2d1r", (64, 128), 2, dtype="df64", repeats=1)
+    assert r["backend"] == "xla" and r["dtype"] == "df64"
+    assert r["gcells_per_s"] > 0 and r["roofline_share"] is None
+    r1 = run_config("1d1r", (4096,), 2, dtype="df64", repeats=1)
+    assert r1["gcells_per_s"] > 0
 
 
-def test_suite_gate_tiers(tmp_path):
-    """xla-df64 rows form their OWN regression-gate tier -- they must
-    neither be invisible to the baseline nor compared against the ~30x
-    faster fp32 pallas rows (review finding, round 7)."""
-    import json
-
+def test_suite_rows_name_device():
+    """Suite rows carry the device they ran on and the median and
+    quartile times; chained runs report per-run times."""
     sys.path.insert(0, REPO_ROOT)
     from benchmarks import suite
 
-    rows = [
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=60.0, backend="pallas-mxu_hybrid1",
-             backend_platform="tpu"),
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=99.0, backend="pallas-mxu_hybrid1-bfloat16",
-             backend_platform="tpu"),
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=2.0, backend="xla-df64",
-             backend_platform="tpu"),
-        # the Pallas pair kernel shares the df64 tier with the XLA path
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=6.0, backend="pallas-df64-vpu_roll",
-             backend_platform="tpu"),
-        # fp64 CPU-tier and sharded rows must stay excluded
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=1.0, backend="pallas-vpu_roll-float64",
-             backend_platform="tpu"),
-        dict(shape="star2d1r", interior=[8192, 8192], steps=256,
-             gcells_per_s=47.0, backend="sharded-1x1-overlap",
-             backend_platform="tpu"),
-    ]
-    path = tmp_path / "results.jsonl"
-    path.write_text("\n".join(json.dumps(r) for r in rows) + "\n")
-    best, floor = suite.recorded_stats(str(path), "tpu")
-    key = ("star2d1r", (8192, 8192), 256)
-    assert best[("fp32",) + key] == 60.0
-    assert best[("bf16",) + key] == 99.0
-    assert best[("df64",) + key] == 6.0  # best across xla/pallas pair paths
-    assert len(best) == 3  # float64/sharded rows excluded
-    # the gate floor is robust (median - max(3*MAD, 10%), never above
-    # the recent minimum) -- a single stable recording floors at 90%
-    assert floor[("fp32",) + key] == pytest.approx(54.0)
-    # bimodal df64 recordings [2, 6]: med 4, mad 2 -> band floor is
-    # below the min; the floor is min(recent) capped
-    assert floor[("df64",) + key] <= 2.0
+    r = suite.run_config("1d1r", (4096,), 4, chain=3, repeats=3)
+    assert r["device"]["platform"] == jax.devices()[0].platform
+    assert r["device"]["count"] == len(jax.devices())
+    assert r["q1_ms"] <= r["time_ms"] <= r["q3_ms"]
+    assert r["chain"] == 3 and r["repeats"] == 3
+    names = {n for n, *_ in suite.CONFIGS + suite.BF16 + suite.DF64}
+    assert {"star2d1r", "box2d3r", "1d2r", "box3d1r"} <= names
 
 
 def test_df64_cli_check(capsys):
@@ -263,52 +215,47 @@ def test_df64_cli_check(capsys):
     assert "Correct!" in out
 
 
-# -- the 2-D Pallas pair kernel (ops/pallas_df64.py) --------------------------
-@pytest.mark.parametrize("alg", ["vpu_roll", "vpu", "vpu_sep"])
+# -- the pair step at fused depth k -----------------------------------------
+@pytest.mark.parametrize("k", [1, 2, 3])
 @pytest.mark.parametrize("name", ["star2d3r", "star2d1r", "box2d3r"])
-def test_df64_pallas_kernel_accuracy(name, alg):
-    """Every kernel algorithm holds ~1e-14/step vs the fp64 ground
-    truth on every 2-D registry shape (the engine battery covers
-    'auto' = vpu_sep; this pins each algorithm explicitly: vpu_roll
-    the dense rolls, vpu the dense slices, vpu_sep the separable
-    low-rank form with folded symmetric pairs + residue)."""
+def test_df64_pair_step_accuracy(name, k):
+    """The pair step holds ~1e-14/step vs the fp64 ground truth on every
+    2-D registry shape, unfused and fused."""
     spec = shapes.get_shape(name)
     interior = (48, 256)
     g0 = _padded_input(spec, interior, seed=41)
     eng = engine.StencilEngine.for_shape(
-        name, interior, dtype="df64", algorithm=alg)
-    assert eng.df64_pallas and eng.df64_algorithm == alg
-    got = eng.run(g0, 4)
-    want = reference.run(g0, spec, 4)
+        name, interior, dtype="df64", fused_steps=k)
+    assert eng._fused_k() == k
+    got = eng.run(g0, 2 * k + 1)
+    want = reference.run(g0, spec, 2 * k + 1)
     rel = np.abs(got - want).max() / max(1.0, np.abs(want).max())
-    assert rel < 1e-12, (name, alg, rel)
+    assert rel < 1e-12, (name, k, rel)
 
 
-def test_df64_pick_algorithm():
-    """'auto' resolves to the separable kernel exactly when its static
-    op count beats the dense roll path -- true for all three 2-D
-    registry shapes (star2d1r: 33 dense taps vs 2x 5-tap convs + 4
-    folded residue pairs)."""
-    from lorastencil_tpu.ops import pallas_df64
-
-    for name in ("star2d1r", "star2d3r", "box2d3r"):
-        assert pallas_df64.pick_algorithm(
-            shapes.get_shape(name)) == "vpu_sep", name
-        eng = engine.StencilEngine.for_shape(name, (40, 200),
-                                             dtype="df64")
-        assert eng.df64_algorithm == "vpu_sep"
+def test_df64_pair_valid_matches_dense():
+    """df64.pair_valid, the valid pair correlation, against the fp64
+    dense correlation of the merged input."""
+    spec = shapes.get_shape("star2d1r")
+    x = _padded_input(spec, (40, 72), seed=9)
+    hi, lo = df64.split_host(x)
+    h, l_ = jax.jit(lambda a, b: df64.pair_valid(a, b, spec))(hi, lo)
+    got = df64.merge_host(np.stack([np.asarray(h), np.asarray(l_)]))
+    S, r = spec.dense_coeffs(), spec.radius
+    out = tuple(n - 2 * r for n in x.shape)
+    want = sum(S[i, j] * x[i: i + out[0], j: j + out[1]]
+               for i, j in np.argwhere(S != 0))
+    assert got.shape == tuple(s - 2 * spec.radius for s in x.shape)
+    assert np.abs(got - want).max() <= 1e-13 * np.abs(want).max()
 
 
 def test_df64_sep_asymmetric_coeffs():
-    """vpu_sep's 'single' tap path (+-d weights differ) and asymmetric
-    residue: a non-symmetric random 2-D stencil through for_coeffs must
-    stay fp64-grade."""
+    """A non-symmetric random 2-D stencil (asymmetric taps and residue)
+    through for_coeffs stays fp64-grade."""
     rng = np.random.default_rng(43)
     S = rng.standard_normal((5, 5))  # NOT symmetrized
     interior = (40, 200)
-    eng = engine.StencilEngine.for_coeffs(S, interior, dtype="df64",
-                                          algorithm="vpu_sep")
-    assert eng.df64_pallas and eng.df64_algorithm == "vpu_sep"
+    eng = engine.StencilEngine.for_coeffs(S, interior, dtype="df64")
     g0 = (reference.random_padded(eng.spec, interior, seed=44)
           * (np.e / 100.0))
     got = eng.run(g0, 3)
@@ -317,25 +264,31 @@ def test_df64_sep_asymmetric_coeffs():
     assert rel < 1e-12, rel
 
 
-def test_df64_sep_fold_plan():
-    """_fold_taps / _sep_plan statics: symmetric taps fold to pairs,
-    asymmetric stay singles, zeros are skipped, point-symmetric residue
-    offsets fold."""
-    from lorastencil_tpu.ops import pallas_df64
+def test_df64_pair_step_region():
+    """The pair step writes only its region: a region call leaves the
+    rest of the donor untouched."""
+    import jax.numpy as jnp
+    from lorastencil.ops import plain
+    from lorastencil.ops.layout import Layout2D
 
-    ops = pallas_df64._fold_taps((0.0, 1.0, 2.0, 4.0, 2.0, 1.0, 0.0))
-    kinds = [(k, d) for k, d, _ in ops]
-    assert kinds == [("single", 0), ("pair", 1), ("pair", 2)]
-    ops = pallas_df64._fold_taps((3.0, 2.0, 1.0))
-    assert [(k, d) for k, d, _ in ops] == [
-        ("single", 0), ("single", 1), ("single", -1)]
     spec = shapes.get_shape("star2d1r")
-    terms, res = pallas_df64._sep_plan(spec)
-    assert len(terms) == 1 and all(t is not None for t in terms[0])
-    assert all(k == "pair" for k, _, _ in res) and len(res) == 4
+    lay = Layout2D(interior=(32, 256), halo=spec.halo, tile=(8, 128))
+    g0 = _padded_input(spec, (32, 256), seed=4)
+    cur = jnp.stack([lay.to_internal(p) for p in df64.split_host(g0)])
+    donor = jnp.full_like(cur, 7.0)
+    out = np.asarray(plain.step(cur, donor, spec, lay, pair=True,
+                                region=((1, 3), (0, 1))))
+    r0, c0 = lay.origin
+    assert (out[:, : r0 + 8] == 7.0).all()
+    assert (out[:, r0 + 24:] == 7.0).all()
+    assert (out[:, :, c0 + 128:] == 7.0).all()
+    full = np.asarray(plain.step(cur, jnp.zeros_like(cur), spec, lay,
+                                 pair=True))
+    blk = (slice(None), slice(r0 + 8, r0 + 24), slice(c0, c0 + 128))
+    np.testing.assert_array_equal(out[blk], full[blk])
 
 
-def test_df64_pallas_unaligned_interior():
+def test_df64_unaligned_interior():
     """Tile round-up: interior not a multiple of the tile -- the bounds
     mask must zero the fake cells (they alias the output guard ring)."""
     spec = shapes.get_shape("box2d1r")
@@ -351,16 +304,16 @@ def test_df64_pallas_unaligned_interior():
     assert np.all(got[-h[0]:] == 0.0) and np.all(got[:, -h[1]:] == 0.0)
 
 
-def test_df64_3d_pallas_unaligned_interior():
-    """3-D pair slab kernel (ops/pallas_df64_3d.py): tile round-up in
-    both plane axes + an odd z extent (slab=1 fallback); the bounds
-    mask must zero the fake cells and the output halo stays zero."""
+def test_df64_3d_unaligned_interior():
+    """3-D pair step: tile round-up in both plane axes + an odd z
+    extent; the bounds mask must zero the fake cells and the output halo
+    stays zero."""
     spec = shapes.get_shape("box3d1r")
     interior = (5, 20, 150)
     g0 = _padded_input(spec, interior, seed=45)
     eng = engine.StencilEngine.for_shape(
         "box3d1r", interior, dtype="df64", tile=(16, 128))
-    assert eng.df64_pallas and eng.spec.ndim == 3
+    assert eng.spec.ndim == 3
     got = eng.run(g0, 3)
     want = reference.run(g0, spec, 3)
     assert np.abs(got - want).max() <= 1e-12 * max(1.0, np.abs(want).max())
@@ -373,12 +326,11 @@ def test_df64_3d_pallas_unaligned_interior():
 
 def test_df64_3d_custom_coeffs_separable_z():
     """3-D for_coeffs, fully-separable z profile (decompose_3d branch
-    1) through the pair slab kernel."""
+    1) through the pair step."""
     S = np.einsum("i,j,k->ijk", [1.0, 3.0, 1.0], [1.0, 2.0, 1.0],
                   [0.5, 1.0, 0.5])
     interior = (6, 20, 150)
     eng = engine.StencilEngine.for_coeffs(S, interior, dtype="df64")
-    assert eng.df64_pallas
     g0 = (reference.random_padded(eng.spec, interior, seed=46)
           * (np.pi / 100.0))
     got = eng.run(g0, 3)
@@ -387,66 +339,39 @@ def test_df64_3d_custom_coeffs_separable_z():
     assert rel < 1e-12, rel
 
 
-def test_df64_3d_interpret_single_tile_guard():
-    """The 3-D pair kernel refuses single-tile interpret plane grids
-    (same XLA:CPU blowup as 2-D); engine default layouts split."""
-    from lorastencil_tpu.ops import pallas_df64_3d
-    from lorastencil_tpu.ops.layout import Layout3D
-    import jax.numpy as jnp
-
+def test_df64_3d_single_tile_grid():
+    """Single-tile 3-D plane grids run the pair step exactly."""
     spec = shapes.get_shape("star3d1r")
-    lay = Layout3D(interior=(4, 8, 128), halo=spec.halo, tile=(8, 128),
-                   zguard=1)
-    cur = jnp.zeros((2,) + lay.shape, jnp.float32)
-    with pytest.raises(ValueError, match="2-tile"):
-        pallas_df64_3d.df64_3d_step(cur, jnp.zeros_like(cur), spec, lay,
-                                    interpret=True)
-    # engine default layouts split the plane tile on interpret grids
-    # (interiors below the minimum (8, 128) tile cannot split -- the
-    # kernel's loud error points such tiny grids at backend='xla')
-    for interior in ((6, 20, 150), (4, 16, 256), (8, 32, 512)):
-        eng = engine.StencilEngine.for_shape("star3d1r", interior,
-                                             dtype="df64")
-        gi, gj = eng.layout.grid
-        assert gi * gj >= 2, (interior, eng.layout.tile)
+    interior = (4, 8, 128)
+    eng = engine.StencilEngine.for_shape("star3d1r", interior,
+                                         dtype="df64")
+    assert eng.layout.grid == (1, 1)
+    g0 = _padded_input(spec, interior, seed=8)
+    want = reference.run(g0, spec, 3)
+    got = eng.run(g0, 3)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
-def test_df64_pallas_interpret_single_tile_guard():
-    """Interpret mode + a single-tile grid is an XLA:CPU compile blowup
-    (trip-1 grid loop inlined, elemental fusion re-expands the df64
-    chain): the kernel refuses loudly, and the engine's default layout
-    splits the tile instead of hitting the guard."""
-    from lorastencil_tpu.ops import pallas_df64
-    from lorastencil_tpu.ops.layout import Layout2D
-    import jax.numpy as jnp
-
+def test_df64_single_tile_grid():
+    """Single-tile 2-D grids run the pair step exactly."""
     spec = shapes.get_shape("star2d1r")
-    lay = Layout2D(interior=(8, 128), halo=spec.halo, tile=(8, 128),
-                   guard=(8, 128))
-    cur = jnp.zeros((2,) + lay.shape, jnp.float32)
-    with pytest.raises(ValueError, match="2-tile grid"):
-        pallas_df64.df64_step(cur, jnp.zeros_like(cur), spec, lay,
-                              interpret=True)
-    # engine default layouts never produce a single-tile interpret grid
-    for interior in ((64, 256), (8, 256), (40, 200)):
-        eng = engine.StencilEngine.for_shape(
-            "star2d1r", interior, dtype="df64")
-        gi, gj = eng.layout.grid
-        assert gi * gj >= 2, (interior, eng.layout.tile)
+    interior = (8, 128)
+    eng = engine.StencilEngine.for_shape("star2d1r", interior,
+                                         dtype="df64")
+    assert eng.layout.grid == (1, 1)
+    g0 = _padded_input(spec, interior, seed=8)
+    want = reference.run(g0, spec, 3)
+    got = eng.run(g0, 3)
+    assert np.abs(got - want).max() <= 1e-12 * np.abs(want).max()
 
 
-# -- 1-D pair lanes kernel (ops/pallas_df64_1d.py) ---------------------------
+# -- 1-D pair step -------------------------------------------------------------
 @pytest.mark.parametrize("name,n", [("1d1r", 4096), ("1d2r", 20000)])
-def test_df64_1d_pallas_kernel(name, n):
-    """Multi-tile lanes grids stay fp64-grade; the engine must engage
-    the pair lanes kernel (round 4: previously the XLA pair path)."""
-    from lorastencil_tpu.ops.layout import Layout1DLanes
-
+def test_df64_1d_multi_tile(name, n):
+    """Multi-tile 1-D grids stay fp64-grade."""
     spec = shapes.get_shape(name)
     g0 = _padded_input(spec, (n,), seed=46)
     eng = engine.StencilEngine.for_shape(name, (n,), dtype="df64")
-    assert eng.df64_pallas and isinstance(eng.layout, Layout1DLanes)
-    assert eng.df64_algorithm == "vpu_roll"
     got = eng.run(g0, 4)
     want = reference.run(g0, spec, 4)
     rel = np.abs(got - want).max() / max(1.0, np.abs(want).max())
@@ -455,32 +380,24 @@ def test_df64_1d_pallas_kernel(name, n):
     assert np.all(got[:h] == 0.0) and np.all(got[-h:] == 0.0)
 
 
-def test_df64_1d_resident_pair():
-    """Small grids take the VMEM-resident pair kernel (ALL steps in one
-    dispatch); accuracy holds across fixup blocks and tails (refresh =
-    lane_halo / r_eff = 8 for 1d1r)."""
+def test_df64_1d_many_steps():
+    """Accuracy holds over many steps and fused passes with a
+    remainder."""
     spec = shapes.get_shape("1d1r")
     g0 = _padded_input(spec, (4096,), seed=95)
-    eng = engine.StencilEngine.for_shape("1d1r", (4096,), dtype="df64")
-    assert eng.df64_pallas and getattr(eng.layout, "resident", False)
+    eng = engine.StencilEngine.for_shape("1d1r", (4096,), dtype="df64",
+                                         fused_steps=4)
     for steps in (1, 8, 9, 17):
         got = eng.run(g0, steps)
         want = reference.run(g0, spec, steps)
         rel = np.abs(got - want).max() / max(1.0, np.abs(want).max())
         assert rel < 1e-12, (steps, rel)
-    # ghost boundaries keep the tiled lanes path (the ring refresh runs
-    # between kernel passes)
-    engg = engine.StencilEngine.for_shape("1d1r", (4096,), dtype="df64",
-                                          boundary="periodic")
-    assert not getattr(engg.layout, "resident", False)
 
 
 def test_df64_1d_custom_asymmetric_coeffs():
-    """The 'single' tap path (+-d weights differ), a zero center tap,
-    and the w == +-1 product shortcuts on the pair lanes kernel."""
+    """Asymmetric taps, a zero center tap and +-1 weights."""
     taps = np.asarray([1.0, -0.75, 0.0, 0.5, -1.0])
     eng = engine.StencilEngine.for_coeffs(taps, (6000,), dtype="df64")
-    assert eng.df64_pallas
     g0 = (reference.random_padded(eng.spec, (6000,), seed=47)
           * (np.e / 100.0))
     got = eng.run(g0, 3)
@@ -490,19 +407,14 @@ def test_df64_1d_custom_asymmetric_coeffs():
 
 
 @pytest.mark.parametrize("r_eff", [33, 64, 100])
-def test_df64_1d_wide_radius_flat_kernel(r_eff):
-    """Effective radius beyond the overlapped-lane layout (> 32): the
-    engine runs the flat pair kernel (df64_1d_flat_step) and stays
-    fp64-grade -- the tier is radius-uniform like the reference's fp64
-    band build (src/1d/gpu_1r.cu:94-99), no 12x XLA-path cliff at 33."""
-    from lorastencil_tpu.ops.layout import Layout1D
-
+def test_df64_1d_wide_radius(r_eff):
+    """Wide radii stay fp64-grade -- the tier is radius-uniform like
+    the reference's fp64 band build (src/1d/gpu_1r.cu:94-99)."""
     taps = np.zeros(2 * r_eff + 1)
     taps[0] = taps[-1] = 0.5
     taps[r_eff] = 1.0
     taps[r_eff // 3] = -0.625
     eng = engine.StencilEngine.for_coeffs(taps, (2000,), dtype="df64")
-    assert eng.df64_pallas and isinstance(eng.layout, Layout1D)
     g0 = (reference.random_padded(eng.spec, (2000,), seed=48)
           * (np.pi / 100.0))
     got = eng.run(g0, 2)
@@ -512,8 +424,8 @@ def test_df64_1d_wide_radius_flat_kernel(r_eff):
 
 
 def test_df64_1d_wide_radius_ghost_boundaries():
-    """Ghost rings on the wide-radius flat pair tier (the ring refresh
-    is the generic flat-layout path, per pair plane)."""
+    """Ghost rings at a wide radius (the ring refresh runs per pair
+    plane on the flat 1-D layout)."""
     taps = np.zeros(81)  # radius 40
     taps[0] = taps[-1] = 1.0
     taps[40] = -2.0
@@ -521,7 +433,6 @@ def test_df64_1d_wide_radius_ghost_boundaries():
                             ("reflect", reference.run_reflect)):
         eng = engine.StencilEngine.for_coeffs(
             taps, (2000,), dtype="df64", boundary=boundary)
-        assert eng.df64_pallas
         g0 = (reference.random_padded(eng.spec, (2000,), seed=3)
               * 0.01)
         it = reference.interior_slices(eng.spec, g0.shape)
@@ -533,19 +444,13 @@ def test_df64_1d_wide_radius_ghost_boundaries():
 
 
 @pytest.mark.parametrize("name", ["star2d1r", "box2d3r"])
-def test_df64_2d_resident_pair(name, monkeypatch):
-    """The 2-D VMEM-resident df64 pair kernel (round-5 VERDICT item 6);
-    fp64-grade across steps.  OFF by default (the device sweep measured
-    it slower than the tiled pair pipeline at every size); enabled here
-    via the byte-cap override."""
-    from lorastencil_tpu.ops import pallas_df64
-
-    monkeypatch.setattr(pallas_df64, "RESIDENT_PAIR_2D_BYTES", 8 * 2**20)
+def test_df64_2d_mid_grid(name):
+    """Mid-size 2-D df64 grids over a few steps; fp64-grade, zero
+    output halo."""
     spec = shapes.get_shape(name)
     interior = (256, 384)
     g0 = _padded_input(spec, interior, seed=61)
     eng = engine.StencilEngine.for_shape(name, interior, dtype="df64")
-    assert pallas_df64.fits_resident_pair_2d(eng.layout)
     for steps in (1, 4):
         got = eng.run(g0, steps)
         want = reference.run(g0, spec, steps)
@@ -553,8 +458,6 @@ def test_df64_2d_resident_pair(name, monkeypatch):
         assert rel < 1e-12, (name, steps, rel)
     h = spec.halo
     assert np.all(got[: h[0]] == 0.0) and np.all(got[:, : h[1]] == 0.0)
-    # ghost boundaries ride the tiled pair kernel (ring refresh between
-    # passes) -- covered for correctness by test_df64_ghost_boundaries
 
 
 # -- sharded df64 (pair state through the halo exchange) ---------------------
@@ -566,7 +469,7 @@ def test_sharded_df64_matches_fp64_reference(name, mesh_shape):
     """Domain-decomposed df64: the hi/lo planes ride the fp32 tier's
     two-phase ppermute exchange; accuracy must stay fp64-grade across
     device boundaries and corners."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape(name)
     interior = (16 * mesh_shape[0], 128 * mesh_shape[1])
@@ -583,7 +486,7 @@ def test_sharded_df64_matches_fp64_reference(name, mesh_shape):
 def test_sharded_df64_nondivisible_and_sequential():
     """Block-padded non-divisible grids, both dataflows (ring-in-output
     default and the explicit overlap=False sequential exchange)."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("star2d1r")
     interior = (30, 300)
@@ -605,7 +508,7 @@ def test_sharded_df64_nondivisible_and_sequential():
 ])
 def test_df64_ghost_boundaries(name, boundary):
     """periodic/reflect ghost rings on the df64 tier: every dim rides
-    its Pallas pair kernel (per-plane ring refresh + ghost bounds).
+    the pair step (per-plane ring refresh + ghost bounds).
     Ring copies and flips are exact on (hi, lo) pairs, so accuracy must
     stay fp64-grade vs the host ghost truths."""
     spec = shapes.get_shape(name)
@@ -636,7 +539,7 @@ def test_df64_ghost_boundaries(name, boundary):
 def test_sharded_df64_ghost_boundaries():
     """Sharded df64 ghost rings: the base exchange's ppermute wrap /
     edge mirrors, vmapped over the pair planes, across a (2, 2) mesh."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("star2d1r")
     interior = (32, 256)
@@ -655,11 +558,10 @@ def test_sharded_df64_ghost_boundaries():
 
 @pytest.mark.parametrize("boundary", ["periodic", "reflect"])
 def test_sharded_df64_1d_tailed_ghost_blocks(boundary):
-    """Non-divisible 1-D df64 blocks under ghost boundaries (round 5;
-    previously a loud tier error): the true-tail edge strips move
-    through the flat layout's dynamic slices, and the pair state runs
-    the flat pair kernel per device."""
-    from lorastencil_tpu.parallel import domain
+    """Non-divisible 1-D df64 blocks under ghost boundaries: the
+    true-tail edge strips move through the flat layout's dynamic
+    slices."""
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("1d1r")
     g0 = _padded_input(spec, (5000,), seed=21)
@@ -670,7 +572,6 @@ def test_sharded_df64_1d_tailed_ghost_blocks(boundary):
     for overlap in (True, False):
         sh = domain.sharded_engine("1d1r", 5000, (4,), dtype="df64",
                                    boundary=boundary, overlap=overlap)
-        assert not sh.lanes  # the flat pair tier
         got = np.asarray(sh.run(g0, 3))
         rel = (np.abs(got[it] - want[it]).max()
                / max(1.0, np.abs(want).max()))
@@ -678,16 +579,14 @@ def test_sharded_df64_1d_tailed_ghost_blocks(boundary):
 
 
 def test_sharded_df64_1d_wide_radius():
-    """Wide-radius (r_eff > 32) sharded 1-D df64 rides the flat pair
-    kernel (round 5; previously a loud tier error)."""
-    from lorastencil_tpu.parallel import domain
+    """Wide-radius sharded 1-D df64."""
+    from lorastencil.parallel import domain
 
     wide = np.zeros(99)  # radius 49
     wide[0] = wide[-1] = 1.0
     wide[49] = -2.0
     sh = domain.sharded_engine_for_coeffs(wide, 8192, (4,),
                                           dtype="df64")
-    assert not sh.lanes
     g0 = (reference.random_padded(sh.spec, (8192,), seed=5) * 0.01)
     got = np.asarray(sh.run(g0, 2))
     want = reference.run(g0, sh.spec, 2)
@@ -695,17 +594,15 @@ def test_sharded_df64_1d_wide_radius():
     assert rel < 1e-12, rel
 
 
-def test_sharded_df64_1d_midband_radius_forces_lanes():
-    """Divisible blocks at r_eff in (16, 32] force the overlapped-lane
-    pair layout (the base fp32 class only auto-picks lanes to 16)."""
-    from lorastencil_tpu.parallel import domain
+def test_sharded_df64_1d_midband_radius():
+    """Sharded 1-D df64 at radius 24 on divisible blocks."""
+    from lorastencil.parallel import domain
 
     taps = np.zeros(49)  # r_eff 24
     taps[0] = taps[-1] = 0.25
     taps[24] = 1.0
     sh = domain.sharded_engine_for_coeffs(taps, 16384, (4,),
                                           dtype="df64")
-    assert sh.lanes
     g0 = (reference.random_padded(sh.spec, (16384,), seed=11) * 0.01)
     got = np.asarray(sh.run(g0, 2))
     want = reference.run(g0, sh.spec, 2)
@@ -717,7 +614,7 @@ def test_sharded_df64_beats_sharded_fp32():
     """The sharded pair state must actually carry the extra mantissa
     bits end-to-end (a downcast anywhere would still pass a loose
     fp32-level comparison)."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("star2d1r")
     interior = (32, 256)
@@ -736,7 +633,7 @@ def test_sharded_df64_beats_sharded_fp32():
 
 
 def test_sharded_df64_checksum_matches_run():
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("star2d1r")
     interior = (32, 256)
@@ -753,39 +650,36 @@ def test_sharded_df64_checksum_matches_run():
 
 
 def test_sharded_df64_guards():
-    """Tier boundaries are loud: 1-D, fused steps, MXU algorithms, and
-    direct base-class misuse all raise."""
-    from lorastencil_tpu.parallel import domain
+    """Direct base-class misuse raises; fused df64 sharded runs and a
+    pure-center-tap spec work."""
+    from lorastencil.parallel import domain
 
     with pytest.raises(ValueError, match="ShardedStencilDF64_1D"):
         domain.ShardedStencil1D(
             shapes.get_shape("1d1r"), 4096,
             domain.ShardedConfig(mesh_shape=(4,), dtype="df64"))
-    center = np.zeros(9)  # effective radius 0: XLA pair path only
-    center[4] = 1.5
-    with pytest.raises(ValueError, match="effective radius"):
-        domain.sharded_engine_for_coeffs(center, 8192, (4,),
-                                         dtype="df64")
-    with pytest.raises(ValueError, match="separable"):
-        domain.sharded_engine("star3d1r", (6, 16, 256), (2, 2),
-                              dtype="df64", algorithm="vpu_roll")
     with pytest.raises(ValueError, match="ShardedStencilDF64_3D"):
         domain.ShardedStencil3D(
             shapes.get_shape("star3d1r"), (6, 16, 256),
             domain.ShardedConfig(mesh_shape=(2, 2), dtype="df64"))
-    with pytest.raises(ValueError, match="fused_steps=1"):
-        domain.sharded_engine("box3d1r", (6, 16, 256), (2, 2),
-                              dtype="df64", fused_steps=2)
-    with pytest.raises(ValueError, match="fused_steps=1"):
-        domain.sharded_engine("star2d1r", (32, 256), (2, 2),
-                              dtype="df64", fused_steps=2)
-    with pytest.raises(ValueError, match="error-free"):
-        domain.sharded_engine("star2d1r", (32, 256), (2, 2),
-                              dtype="df64", algorithm="mxu_hybrid1")
     with pytest.raises(ValueError, match="ShardedStencilDF64"):
         domain.ShardedStencil2D(
             shapes.get_shape("star2d1r"), (32, 256),
             domain.ShardedConfig(mesh_shape=(2, 2), dtype="df64"))
+    spec = shapes.get_shape("star2d1r")
+    g0 = _padded_input(spec, (32, 256), seed=5)
+    sh = domain.sharded_engine("star2d1r", (32, 256), (2, 2),
+                               dtype="df64", fused_steps=2)
+    want = reference.run(g0, spec, 5)
+    assert np.abs(sh.run(g0, 5) - want).max() <= 1e-12 * np.abs(want).max()
+    center = np.zeros(9)
+    center[4] = 1.5
+    shc = domain.sharded_engine_for_coeffs(center, 8192, (4,),
+                                           dtype="df64")
+    gc = _padded_input(shc.spec, (8192,), seed=6)
+    want = reference.run(gc, shc.spec, 2)
+    assert np.abs(shc.run(gc, 2) - want).max() <= 1e-12 * np.abs(
+        want).max()
 
 
 def test_sharded_df64_cli_check(capsys):
@@ -794,7 +688,6 @@ def test_sharded_df64_cli_check(capsys):
     out = capsys.readouterr().out
     assert rc == 0, out
     assert "Correct!" in out
-    # 1-D df64 meshes ride the pair lanes kernel (round 4)
     rc = cli.main(["1d2r", "4096", "3", "--dtype", "df64",
                    "--mesh", "4", "--check", "--repeats", "1"])
     out = capsys.readouterr().out
@@ -811,9 +704,9 @@ def test_sharded_df64_cli_check(capsys):
 def test_sharded_df64_3d(name, mesh_shape, interior, boundary):
     """Sharded 3-D df64 (ShardedStencilDF64_3D): the pair planes ride
     the multi-phase exchange (z ppermute included on 3-D meshes) and
-    each device runs the pair slab kernel; fp64-grade across device
+    each device runs the pair step; fp64-grade across device
     boundaries, corner octants, non-divisible blocks and ghost modes."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape(name)
     g0 = _padded_input(spec, interior, seed=91)
@@ -833,7 +726,7 @@ def test_sharded_df64_3d(name, mesh_shape, interior, boundary):
 
 
 def test_sharded_df64_3d_sequential_and_checksum():
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("box3d1r")
     interior = (8, 32, 256)
@@ -862,18 +755,18 @@ def test_sharded_df64_3d_cli_check(capsys):
     ((4,), "dirichlet0"), ((8,), "periodic"), ((2,), "reflect"),
 ])
 def test_sharded_df64_1d(mesh_shape, boundary):
-    """Sharded 1-D df64 (round 4): the pair planes ride the edge-strip
-    ppermute exchange and each device runs the pair lanes kernel;
+    """Sharded 1-D df64: the pair planes ride the edge-strip ppermute
+    exchange and each device runs the pair step;
     accuracy stays fp64-grade across device boundaries for every
     boundary condition."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("1d2r")
     n = 1024 * mesh_shape[0]  # lane-aligned divisible blocks
     g0 = _padded_input(spec, (n,), seed=93)
     sh = domain.sharded_engine("1d2r", n, mesh_shape, dtype="df64",
                                boundary=boundary)
-    assert isinstance(sh, domain.ShardedStencilDF64_1D) and sh.lanes
+    assert isinstance(sh, domain.ShardedStencilDF64_1D)
     got = sh.run(g0, 3)
     assert got.dtype == np.float64
     truth = {"dirichlet0": reference.run,
@@ -887,7 +780,7 @@ def test_sharded_df64_1d(mesh_shape, boundary):
 def test_sharded_df64_1d_nondivisible_and_sequential():
     """Non-divisible dirichlet0 blocks (bounds mask the fake tail) and
     the sequential (overlap=False) exchange; checksum is deterministic."""
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("1d1r")
     n = 5000

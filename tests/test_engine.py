@@ -1,20 +1,21 @@
-"""End-to-end engine tests: Pallas kernels (interpret mode) vs the NumPy
-fp64 ground truth, for every shape, multi-step, tile-unaligned sizes."""
+"""End-to-end engine tests: the engine's default path (the plain XLA
+step on the CPU) vs the NumPy fp64 ground truth, for every shape,
+multi-step, tile-unaligned sizes."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lorastencil_tpu import engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.utils import reference
+from lorastencil import engine
+from lorastencil.models import shapes
+from lorastencil.utils import reference
 
 INTERIORS = {1: (300,), 2: (40, 200), 3: (6, 20, 150)}
 
 
 @pytest.mark.parametrize("name", shapes.ALL_SHAPES)
 @pytest.mark.parametrize("steps", [0, 1, 3])
-def test_engine_pallas_matches_reference(name, steps):
+def test_engine_matches_reference(name, steps):
     spec = shapes.get_shape(name)
     interior = INTERIORS[spec.ndim]
     g0 = reference.random_padded(spec, interior, seed=9)
@@ -48,7 +49,7 @@ def test_engine_tile_aligned_2d():
 
 
 def test_layout_roundtrip():
-    from lorastencil_tpu.ops.layout import Layout1D, Layout2D, Layout3D
+    from lorastencil.ops.layout import Layout1D, Layout2D, Layout3D
 
     l2 = Layout2D(interior=(40, 200), halo=(4, 4), tile=(40, 256))
     x = np.arange(48 * 208, dtype=np.float32).reshape(48, 208)
@@ -66,47 +67,72 @@ def test_layout_roundtrip():
         np.asarray(l3.from_internal(l3.to_internal(w))), w)
 
 
-def test_default_tile_3d_spec_aware():
-    """Round-5 device A/B (suite methodology, pipeline=24): specs with
-    NO buffered z-spanning plane conv (star3d1r) win at (256, 256) --
-    fp32 67.1 vs 65.6, bf16 78.3 vs 70.6 GCells/s recorded -- while
-    buffered-conv specs (box3d1r, separable customs) keep (128, 256);
-    the df64 pair slab doubles VMEM state and keeps (128, 256) too."""
-    from lorastencil_tpu.models.shapes import get_shape
-    from lorastencil_tpu.ops.layout import default_tile_3d
+def test_default_tiles():
+    """The layouts' round-up tiles: at most (256, 512) in 2-D and
+    (64, 512) in-plane in 3-D, shrunk to small interiors."""
+    from lorastencil.ops.layout import default_tile_2d, default_tile_3d
 
-    star, box = get_shape("star3d1r"), get_shape("box3d1r")
-    assert default_tile_3d(256, 256, spec=star) == (256, 256)
-    assert default_tile_3d(256, 256, spec=box) == (128, 256)
-    assert default_tile_3d(256, 256) == (128, 256)
-    # the measured (64, 512) large-extent optimum is untouched
-    assert default_tile_3d(512, 512, spec=star) == (64, 512)
-    # engines: star fp32/bf16 pick the big tile, df64 does not
+    assert default_tile_2d(8192, 8192) == (256, 512)
+    assert default_tile_2d(40, 200) == (40, 256)
+    assert default_tile_3d(512, 512) == (64, 512)
+    assert default_tile_3d(20, 150) == (24, 256)
     e = engine.StencilEngine.for_shape("star3d1r", (256, 256, 256))
-    assert e.layout.tile == (256, 256)
-    eb = engine.StencilEngine.for_shape("star3d1r", (256, 256, 256),
-                                        dtype="bfloat16")
-    assert eb.layout.tile == (256, 256)
-    ed = engine.StencilEngine.for_shape("star3d1r", (256, 256, 256),
-                                        dtype="df64")
-    assert ed.layout.tile == (128, 256)
-    ex = engine.StencilEngine.for_shape("box3d1r", (256, 256, 256))
-    assert ex.layout.tile == (128, 256)
+    assert e.layout.tile == (64, 256)
+    e2 = engine.StencilEngine.for_shape("box2d3r", (300, 1000))
+    assert e2.layout.tile == (256, 512) and e2.layout.grid == (2, 2)
 
 
-@pytest.mark.parametrize("name", ["star2d1r", "box2d3r", "star2d3r"])
-@pytest.mark.parametrize("k", [1, 4])
-def test_engine_mxu_split(name, k):
-    """Split-fp32 MXU path: ~1e-5 accurate (16 of 24 mantissa bits),
-    residues converted to separable terms by the greedy peel."""
+# The plain step (ops/plain.py) over the cases the removed kernel tiers
+# covered: shapes x dtype x fused depth x boundary x layout tile.
+PLAIN_CASES = (
+    [(n, "float32", k, "dirichlet0", t)
+     for n in ("star2d1r", "star2d3r", "box2d3r")
+     for k in (1, 2, 3, 4) for t in (None, (16, 128))]
+    + [(n, d, k, "dirichlet0", None)
+       for n in ("star2d1r", "box2d3r") for d in ("bfloat16",)
+       for k in (1, 2)]
+    + [("star2d1r", "float32", k, b, None)
+       for b in ("periodic", "reflect") for k in (1, 2)]
+    + [(n, "float32", k, "dirichlet0", None)
+       for n in ("star3d1r", "box3d1r") for k in (1, 2)]
+)
+
+
+@pytest.mark.parametrize("name,dtype,k,boundary,tile", PLAIN_CASES)
+def test_plain_step_cases(name, dtype, k, boundary, tile):
+    """Engine runs through the plain step match the fp64 truth."""
     spec = shapes.get_shape(name)
-    g0 = reference.random_padded(spec, (40, 200), seed=9)
-    eng = engine.StencilEngine.for_shape(name, (40, 200),
-                                         algorithm="mxu_split",
-                                         fused_steps=k)
-    got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 5), np.float64)
-    want = reference.run(g0, spec, 5)
-    assert np.abs(got - want).max() / np.abs(want).max() < 2e-5
+    interior = INTERIORS[spec.ndim]
+    g0 = reference.random_padded(spec, interior, seed=61)
+    eng = engine.StencilEngine.for_shape(name, interior, dtype=dtype,
+                                         fused_steps=k, boundary=boundary,
+                                         tile=tile)
+    assert eng.backend == "xla" and eng._fused_k() == k
+    steps = 2 * k + 1  # whole passes plus a remainder pass
+    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
+    got = np.asarray(eng.run(jnp.asarray(g0, jdt), steps).astype(
+        jnp.float32), np.float64)
+    truth = {"dirichlet0": reference.run, "periodic": reference.run_periodic,
+             "reflect": reference.run_reflect}[boundary]
+    want = truth(g0, spec, steps)
+    tol = 4e-3 * steps if dtype == "bfloat16" else 1e-6
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < tol, (name, dtype, k, boundary, tile, err)
+
+
+@pytest.mark.parametrize("steps", [0, 1, 2, 4, 5])
+def test_fused_step_counts(steps):
+    """k=2 passes for any step count: none, a lone remainder pass, whole
+    passes, and whole passes plus a remainder."""
+    spec = shapes.get_shape("star2d1r")
+    interior = (40, 200)
+    g0 = reference.random_padded(spec, interior, seed=62)
+    eng = engine.StencilEngine.for_shape("star2d1r", interior,
+                                         fused_steps=2)
+    got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), steps),
+                     np.float64)
+    want = reference.run(g0, spec, steps)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
 
 
 def test_engine_float64_requires_x64():
@@ -144,8 +170,7 @@ def test_engine_3d_fused(name, k):
     spec = shapes.get_shape(name)
     interior = (6, 20, 150)
     g0 = reference.random_padded(spec, interior, seed=9)
-    eng = engine.StencilEngine.for_shape(name, interior,
-                                         fused_steps_3d=k)
+    eng = engine.StencilEngine.for_shape(name, interior, fused_steps=k)
     for steps in (k, 2 * k + 1):
         got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), steps),
                          np.float64)
@@ -154,63 +179,26 @@ def test_engine_3d_fused(name, k):
         assert err < 1e-6, (name, k, steps, err)
 
 
-@pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
-@pytest.mark.parametrize("k", [1, 2])
-def test_3d_conv_carry_bit_equal(name, k):
-    """The cross-slab conv-carry (reusing the previous slab's last
-    2*(K-lvl+1)*r plane convs) is a pure scheduling change: both
-    conv_plane and the masked level outputs are functions of absolute
-    plane position, so carry on/off must be BIT-equal, and correct vs
-    the dense fp64 reference."""
-    from lorastencil_tpu.ops import pallas_3d
-    from lorastencil_tpu.ops.layout import Layout3D
-
-    spec = shapes.get_shape(name)
-    interior = (64, 16, 150)  # H=64: >= 2 slabs at any picked depth
-    g0 = reference.random_padded(spec, interior, seed=21)
-    lay = Layout3D(interior=interior, halo=spec.halo, tile=(8, 128),
-                   zguard=max(spec.halo[0], k * spec.radius))
-    slab = pallas_3d.pick_slab(64, 8, 128, fused_steps=k,
-                               radius=spec.radius)
-    assert 64 // slab >= 2 and slab >= 2 * k * spec.radius, \
-        "test geometry must actually engage the carry path"
-    full = np.zeros(lay.shape, np.float32)
-    z0, r0, c0 = lay.origin
-    hz, hr, hc = spec.halo
-    full[z0 - hz:z0 + interior[0] + hz,
-         r0 - hr:r0 + interior[1] + hr,
-         c0 - hc:c0 + interior[2] + hc] = g0
-    cur = jnp.asarray(full)
-    donor = jnp.zeros_like(cur)
-    outs = {}
-    for carry in (False, True):
-        o = pallas_3d.stencil3d_step(cur, donor, spec, lay,
-                                     interpret=True, fused_steps=k,
-                                     conv_carry=carry)
-        outs[carry] = np.asarray(o)
-    assert np.array_equal(outs[False], outs[True])
-    got = outs[True][z0:z0 + interior[0], r0:r0 + interior[1],
-                     c0:c0 + interior[2]].astype(np.float64)
-    want = reference.run(g0, spec, k)
-    want_i = want[hz:hz + interior[0], hr:hr + interior[1],
-                  hc:hc + interior[2]]
-    err = np.abs(got - want_i).max() / max(1.0, np.abs(want_i).max())
-    assert err < 1e-6, (name, k, err)
-
-
 class TestReviewRegressions:
-    """Fixes from the round-1 code review."""
+    """Regressions found in review."""
 
-    def test_mxu_with_default_fused_steps(self):
-        # 'mxu' cannot fuse; the engine must clamp, not crash
+    def test_fused_steps_clamped_to_guard(self):
+        # k*radius may not exceed the 128-column guard (2-D) or the
+        # 8-row in-plane guard (3-D); the engine clamps, not crashes
+        e2 = engine.StencilEngine.for_shape("star2d1r", (40, 200),
+                                            fused_steps=100)
+        assert e2._fused_k() == 128 // 3
+        e3 = engine.StencilEngine.for_shape("box3d1r", (6, 20, 150),
+                                            fused_steps=100)
+        assert e3._fused_k() == 8
         spec = shapes.get_shape("star2d1r")
         g0 = reference.random_padded(spec, (40, 200), seed=1)
-        eng = engine.StencilEngine.for_shape("star2d1r", (40, 200),
-                                             algorithm="mxu")
-        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 2),
-                         np.float64)
-        want = reference.run(g0, spec, 2)
-        assert np.abs(got - want).max() / np.abs(want).max() < 1e-5
+        got = np.asarray(engine.StencilEngine.for_shape(
+            "box3d1r", (6, 20, 150), fused_steps=100).run(
+                jnp.zeros(shapes.get_shape("box3d1r").padded_shape(
+                    (6, 20, 150)), jnp.float32), 9), np.float64)
+        assert not got.any()
+        del g0
 
     def test_module_run_uses_passed_spec(self):
         eng = engine.StencilEngine.for_coeffs(
@@ -221,9 +209,9 @@ class TestReviewRegressions:
         assert np.asarray(out).shape == (26, 130)
 
     def test_3d_wide_z_radius(self):
-        # z-radius-2 custom 3-D stencils run through the slab kernel
-        # (round-1 rejected these; SURVEY section 7 generalization)
-        from lorastencil_tpu.models.shapes import (SeparableTerm,
+        # z-radius-2 custom 3-D stencils (SURVEY section 7
+        # generalization)
+        from lorastencil.models.shapes import (SeparableTerm,
                                                    StencilSpec)
 
         spec = StencilSpec(
@@ -238,15 +226,15 @@ class TestReviewRegressions:
         for k3 in (1, 2):
             e = engine.StencilEngine(
                 spec, interior,
-                engine.EngineConfig(fused_steps_3d=k3))
+                engine.EngineConfig(fused_steps=k3))
             got = np.asarray(
                 e.run(jnp.asarray(g0, jnp.float32), 3), np.float64)
             want = reference.run(g0, spec, 3)
             err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
             assert err < 1e-6, (k3, err)
 
-    def test_mxu_split_identity_residue(self):
-        from lorastencil_tpu.models.shapes import (SeparableTerm,
+    def test_identity_residue(self):
+        from lorastencil.models.shapes import (SeparableTerm,
                                                    StencilSpec)
 
         spec = StencilSpec(
@@ -255,111 +243,40 @@ class TestReviewRegressions:
             residue=(((0, 0), 1.0),), fuse_factor=1)
         eng = engine.StencilEngine(
             spec, (24, 128),
-            engine.EngineConfig(algorithm="mxu_split", fused_steps=1))
+            engine.EngineConfig(fused_steps=1))
         g = np.random.default_rng(2).uniform(
             0, 1, spec.padded_shape((24, 128)))
         got = np.asarray(eng.run(jnp.asarray(g, jnp.float32), 2),
                          np.float64)
         want = reference.run(g, spec, 2)
-        assert np.abs(got - want).max() / np.abs(want).max() < 2e-5
+        assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
 
 
 class Test1DGenerality:
-    def test_resident_matches_tiled_and_reference(self):
-        # the resident whole-grid kernel (one dispatch for all steps) and
-        # the tiled double-buffered kernel agree with the fp64 truth
-        from lorastencil_tpu.ops import pallas_1d
+    def test_flat_layout_roundtrip_and_guard(self):
+        # the 1-D layout stores the flat array row-major in (rows, 128);
+        # its guard grows with the fused depth
+        from lorastencil.ops.layout import Layout1D
 
-        from lorastencil_tpu.ops.layout import Layout1D
-
-        spec = shapes.get_shape("1d1r")
-        interior = (700,)
-        g0 = reference.random_padded(spec, interior, seed=11)
-        # the flat-resident kernel remains the wide-radius fallback; small
-        # grids default to the resident-LANES path since round 4, so build
-        # the flat layout explicitly here
-        eng = engine.StencilEngine.for_shape("1d1r", interior,
-                                             algorithm="vpu")
+        eng = engine.StencilEngine.for_shape("1d2r", (5000,),
+                                             fused_steps=300)
         assert isinstance(eng.layout, Layout1D)
-        assert pallas_1d.fits_resident(eng.layout)
-        state = eng.to_internal(jnp.asarray(g0, jnp.float32))
-        res = pallas_1d.stencil1d_resident(
-            state, spec, eng.layout, steps=5, interpret=True)
-        cur = eng.to_internal(jnp.asarray(g0, jnp.float32))
-        for _ in range(5):
-            cur = pallas_1d.stencil1d_step(
-                cur, jnp.zeros_like(cur), spec, eng.layout, interpret=True)
-        want = reference.run(g0, spec, 5)
-        for got_state in (res, cur):
-            got = np.asarray(eng.from_internal(got_state), np.float64)
-            assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
-
-    def test_lanes_layout_roundtrip(self):
-        from lorastencil_tpu.ops.layout import Layout1DLanes
-
-        lay = Layout1DLanes(interior=5000, halo=4, lane_halo=6,
-                            tile_rows=8)
-        lay.validate()
+        assert eng.layout.origin >= 300 * 4
         v = np.arange(5008, dtype=np.float32)
+        lay = eng.layout
         np.testing.assert_array_equal(
             np.asarray(lay.from_internal(lay.to_internal(v))), v)
-        # halo lanes duplicate the neighbor rows' payload cells
-        buf = np.asarray(lay.to_internal(v))
-        S = lay.stride
-        assert (buf[3, :6] == buf[2, S: S + 6]).all()
-        assert (buf[3, -6:] == buf[4, 6: 12]).all()
 
-    def test_lanes_kernel_matches_reference(self):
-        # overlapped-lane kernel (one aligned roll per tap): exact vs
-        # fp64 truth, multi-step, fused, unaligned n
-        from lorastencil_tpu.ops import pallas_1d
-        from lorastencil_tpu.ops.layout import Layout1DLanes
-
+    @pytest.mark.parametrize("k", [1, 2, 3, 5])
+    def test_fused_matches_reference(self, k):
         spec = shapes.get_shape("1d2r")
         n = 33_001
-        lay = Layout1DLanes(interior=n, halo=4, lane_halo=8, tile_rows=16)
         g0 = reference.random_padded(spec, (n,), seed=21)
-        cur = lay.to_internal(jnp.asarray(g0, jnp.float32))
-        for _ in range(2):  # 2 passes x fused 2 = 4 steps
-            cur = pallas_1d.stencil1d_lanes_step(
-                cur, jnp.zeros_like(cur), spec, lay, interpret=True,
-                fused_steps=2)
-        got = np.asarray(lay.from_internal(cur), np.float64)
-        want = reference.run(g0, spec, 4)
-        assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
-
-    def test_lanes_engine_path_large_grid(self):
-        # engines pick the lanes layout automatically for large grids
-        from lorastencil_tpu.ops.layout import Layout1DLanes
-
-        spec = shapes.get_shape("1d1r")
-        n = 2_000_000  # beyond the resident-lanes byte budget
-        eng = engine.StencilEngine.for_shape("1d1r", (n,))
-        assert isinstance(eng.layout, Layout1DLanes)
-        from lorastencil_tpu.ops import pallas_1d as _p1
-        assert not _p1.fits_resident_lanes(eng.layout)
-        # 1d1r taps have zero ends: effective radius 3, halo = k*3
-        from lorastencil_tpu.ops import pallas_1d
-        assert pallas_1d.effective_radius(spec) == 3
-        assert eng.layout.lane_halo == eng._fused_k() * 3
-        g0 = reference.random_padded(spec, (n,), seed=22)
-        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 3),
+        eng = engine.StencilEngine.for_shape("1d2r", (n,), fused_steps=k)
+        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 2 * k + 1),
                          np.float64)
-        want = reference.run(g0, spec, 3)
+        want = reference.run(g0, spec, 2 * k + 1)
         assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
-
-    def test_lanes_fused_steps_clamp(self):
-        from lorastencil_tpu.ops import pallas_1d
-        from lorastencil_tpu.ops.layout import Layout1DLanes
-
-        spec = shapes.get_shape("1d2r")
-        lay = Layout1DLanes(interior=33000, halo=4, lane_halo=4,
-                            tile_rows=16)
-        x = jnp.zeros(lay.shape, jnp.float32)
-        with pytest.raises(ValueError, match="lane_halo"):
-            pallas_1d.stencil1d_lanes_step(
-                x, jnp.zeros_like(x), spec, lay, interpret=True,
-                fused_steps=2)
 
     def test_for_coeffs_1d_custom_taps(self):
         taps = np.array([0.5, -1.0, 2.0, -1.0, 0.25])
@@ -372,9 +289,8 @@ class Test1DGenerality:
         assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-6
 
     def test_1d_multi_term_residue_spec(self):
-        # multi-term + residue 1-D specs collapse to dense taps (the
-        # round-1 kernel rejected these; VERDICT item 9)
-        from lorastencil_tpu.models.shapes import SeparableTerm, StencilSpec
+        # multi-term + residue 1-D specs collapse to dense taps
+        from lorastencil.models.shapes import SeparableTerm, StencilSpec
 
         spec = StencilSpec(
             name="mt1d", ndim=1, radius=3, halo=(3,),
@@ -389,16 +305,13 @@ class Test1DGenerality:
         assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-6
 
     def test_1d_deep_fusion(self):
-        # guard_rows grows with fused_steps (k > 8 legal since round 2);
-        # normalized taps keep values bounded over the 2k+3 steps
+        # the guard grows with fused_steps; normalized taps keep values
+        # bounded over the 2k+3 steps
         taps = np.array([1, 2, 3, 4, 5, 4, 3, 2, 1], np.float64) / 25.0
         k = 24
-        # algorithm='vpu' pins the FLAT tiled path (lanes/resident would
-        # ignore deep fusion); 600K cells exceed the flat-resident fit
         eng = engine.StencilEngine.for_coeffs(taps, (600_000,), halo=(4,),
-                                              fused_steps=k,
-                                              algorithm="vpu")
-        assert eng.layout.guard_rows == 24
+                                              fused_steps=k)
+        assert eng.layout.origin >= k * 4
         g0 = reference.random_padded(eng.spec, (600_000,), seed=5)
         got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 2 * k + 3),
                          np.float64)
@@ -407,48 +320,28 @@ class Test1DGenerality:
         assert err < 5e-6, err
 
 
-@pytest.mark.parametrize("alg,tol", [
-    ("vpu_roll", 1e-6), ("mxu_hybrid3", 1e-6),
-    ("mxu_hybrid", 1e-4), ("mxu_hybrid1", 1e-6), ("auto", 1e-6),
-])
-@pytest.mark.parametrize("name", ["star2d1r", "star2d3r", "box2d3r"])
-def test_2d_algorithm_tiers(name, alg, tol):
-    spec = shapes.get_shape(name)
-    g0 = reference.random_padded(spec, (40, 200), seed=61)
-    eng = engine.StencilEngine.for_shape(name, (40, 200), algorithm=alg,
-                                         fused_steps=2)
-    got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 4), np.float64)
-    want = reference.run(g0, spec, 4)
-    assert np.abs(got - want).max() / np.abs(want).max() < tol
+def test_cpu_path_resolution():
+    """The engine's path: XLA on the CPU for every dimensionality and
+    dtype; the fused depth defaults to 1 there."""
+    for name, kw in (("star2d1r", {}), ("box3d1r", {}), ("1d2r", {}),
+                     ("star2d1r", {"dtype": "bfloat16"}),
+                     ("star2d1r", {"dtype": "df64"})):
+        interior = INTERIORS[shapes.get_shape(name).ndim]
+        eng = engine.StencilEngine.for_shape(name, interior, **kw)
+        assert eng.backend == "xla" and eng._fused_k() == 1, (name, kw)
+    with pytest.raises(ValueError, match="GPU"):
+        engine.StencilEngine.for_shape("star2d1r", (40, 200),
+                                       backend="kernel")
 
 
-def test_auto_algorithm_resolution():
-    assert engine.resolve_algorithm(
-        shapes.get_shape("star2d3r"), "auto") == "mxu_hybrid1"
-    assert engine.resolve_algorithm(
-        shapes.get_shape("star2d1r"), "auto") == "mxu_hybrid1"
-    # 3 terms: mixed assignment with the per-dtype MXU-term cap
-    # (round-5 measurements; see pallas_2d)
-    assert engine.resolve_algorithm(
-        shapes.get_shape("box2d3r"), "auto") == "mxu_hybrid1"
-    assert engine.resolve_algorithm(
-        shapes.get_shape("box3d1r"), "auto") == "vpu"
-    import jax.numpy as jnp2
-
-    assert engine.resolve_algorithm(
-        shapes.get_shape("star2d3r"), "auto", jnp2.float64) == "vpu_roll"
-
-
-@pytest.mark.parametrize("alg", ["vpu_roll", "mxu_hybrid", "mxu_hybrid1",
-                                 "auto"])
-def test_bf16_state_throughput_tier(alg):
-    """bfloat16 HBM state (half the traffic; compute still fp32 in
-    VMEM): ~4e-3/step storage rounding."""
+@pytest.mark.parametrize("k", [1, 2, 3, 4])
+def test_bf16_state_throughput_tier(k):
+    """bfloat16 state in device memory (half the traffic; computed in
+    fp32): ~4e-3/step storage rounding."""
     spec = shapes.get_shape("star2d1r")
     g0 = reference.random_padded(spec, (40, 200), seed=77)
     eng = engine.StencilEngine.for_shape(
-        "star2d1r", (40, 200), dtype="bfloat16", algorithm=alg,
-        fused_steps=2)
+        "star2d1r", (40, 200), dtype="bfloat16", fused_steps=k)
     got = np.asarray(
         eng.run(jnp.asarray(g0, jnp.bfloat16), 4).astype(jnp.float32),
         np.float64)
@@ -457,14 +350,14 @@ def test_bf16_state_throughput_tier(alg):
 
 
 @pytest.mark.parametrize("name,interior", [
-    ("1d2r", (300_000,)),   # lanes layout
-    ("1d1r", (700,)),       # resident path
+    ("1d2r", (300_000,)),
+    ("1d1r", (700,)),
     ("box3d1r", (8, 16, 150)),
     ("star3d1r", (6, 20, 150)),
 ])
 def test_bf16_state_1d_3d(name, interior):
-    """Round 3: the bf16 tier covers every dimensionality (compute is
-    fp32 in VMEM; only the HBM round trip rounds)."""
+    """The bf16 tier covers every dimensionality (compute is fp32; only
+    the stored state rounds)."""
     spec = shapes.get_shape(name)
     g0 = reference.random_padded(spec, interior, seed=78)
     eng = engine.StencilEngine.for_shape(name, interior,
@@ -476,153 +369,110 @@ def test_bf16_state_1d_3d(name, interior):
     assert np.abs(got - want).max() / np.abs(want).max() < 5e-2
 
 
-def test_residue_mxu_groups():
-    """star2d1r's 8-point residue partitions into two shared banded-col
-    streams (the (+-2, +-2) corners share one matrix) plus the pure
-    row-shift (+-3, 0) pair left on the VPU."""
-    from lorastencil_tpu.ops.band_gemm import residue_mxu_groups
+@pytest.mark.parametrize("steps", [1, 2])
+@pytest.mark.parametrize("name", ["star2d1r", "box3d1r"])
+def test_plain_forms_agree(name, steps):
+    """The plain step (dense form) against the low-rank separable form
+    of the same steps (xla_ref.separable_step): the decomposition and the
+    dense coefficients agree."""
+    from lorastencil.ops import xla_ref
 
+    spec = shapes.get_shape(name)
+    interior = INTERIORS[spec.ndim]
+    g0 = jnp.asarray(reference.random_padded(spec, interior, seed=7),
+                     jnp.float32)
+    eng = engine.StencilEngine.for_shape(name, interior)
+    got = np.asarray(eng.run(g0, steps), np.float64)
+    want = g0
+    for _ in range(steps):
+        want = xla_ref.separable_step(want, spec)
+    want = np.asarray(want, np.float64)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
+
+
+def test_bf16_state_on_xla_backend():
+    """bf16 state runs on the XLA backend (stored bf16, computed
+    fp32)."""
+    spec = shapes.get_shape("box3d1r")
+    g0 = reference.random_padded(spec, (8, 16, 128), seed=4)
+    eng = engine.StencilEngine.for_shape("box3d1r", (8, 16, 128),
+                                         dtype="bfloat16", backend="xla")
+    out = eng.run(jnp.asarray(g0, jnp.bfloat16), 2)
+    assert out.dtype == jnp.bfloat16
+    want = reference.run(g0, spec, 2)
+    got = np.asarray(out.astype(jnp.float32), np.float64)
+    assert np.abs(got - want).max() / np.abs(want).max() < 1e-2
+
+
+def test_explicit_tile_overrides():
+    """An explicit tile reshapes the 2-D layout without changing
+    results (the 1-D layout's tile rows follow the grid)."""
     spec = shapes.get_shape("star2d1r")
-    groups, rest = residue_mxu_groups(spec.residue)
-    assert sorted(rest) == [((-3, 0), 1.0), ((3, 0), 1.0)]
-    as_map = {drs: (taps, rc) for drs, taps, rc in groups}
-    assert as_map[(0,)] == ((1.0, 0.0, 0.0, 0.0, 0.0, 0.0, 1.0), 3)
-    assert as_map[(-2, 2)] == ((-1.0, 0.0, 0.0, 0.0, -1.0), 2)
-    # every point lands exactly once
-    n_pts = sum(len(drs) * sum(1 for t in taps if t != 0.0)
-                for drs, taps, _ in groups) + len(rest)
-    assert n_pts == len(spec.residue)
-
-
-@pytest.mark.parametrize("alg", ["mxu_hybrid", "mxu_hybrid1"])
-@pytest.mark.parametrize("dtype,tol", [("bfloat16", 5e-2),
-                                       ("float32", 5e-5)])
-def test_residue_mxu_offload(alg, dtype, tol):
-    """Round 6: the MXU residue offload (banded col matmuls + row-
-    shifted adds) matches the rolled-VPU residue path in both the
-    fixed-extent (hybrid1) and extent-shrinking (hybrid) kernels,
-    unfused and fused."""
-    spec = shapes.get_shape("star2d1r")
-    interior = (40, 200)
-    g0 = reference.random_padded(spec, interior, seed=7)
-    jdt = jnp.bfloat16 if dtype == "bfloat16" else jnp.float32
-    for steps, k in ((3, 1), (4, 2)):
-        want = reference.run(g0, spec, steps)
-        for mode in ("on", "off"):
-            eng = engine.StencilEngine.for_shape(
-                "star2d1r", interior, algorithm=alg, dtype=dtype,
-                residue_mxu=mode, fused_steps=k)
-            got = np.asarray(
-                eng.run(jnp.asarray(g0, jdt), steps).astype(jnp.float32),
-                np.float64)
-            err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
-            assert err < tol, (alg, dtype, mode, steps, k, err)
-
-
-def test_bf16_state_rejected_on_xla_backend():
-    with pytest.raises(ValueError, match="bfloat16"):
-        engine.StencilEngine.for_shape("box3d1r", (8, 16, 128),
-                                       dtype="bfloat16", backend="xla")
-
-
-def test_1d_lane_geometry_overrides():
-    """EngineConfig.lanes_width / lanes_tile_rows reshape the 1-D
-    overlapped-lane layout (the --autotune search space) without
-    changing results."""
-    from lorastencil_tpu.ops.layout import Layout1DLanes
-
-    spec = shapes.get_shape("1d2r")
-    g0 = reference.random_padded(spec, (300_000,), seed=13)
+    g0 = reference.random_padded(spec, (40, 200), seed=13)
     want = reference.run(g0, spec, 3)
-    for kw in ({}, {"lanes_width": 1024}, {"lanes_tile_rows": 56},
-               {"lanes_width": 512, "lanes_tile_rows": 16}):
-        eng = engine.StencilEngine.for_shape("1d2r", (300_000,), **kw)
-        assert isinstance(eng.layout, Layout1DLanes), kw
-        if "lanes_width" in kw:
-            assert eng.layout.width == kw["lanes_width"]
-        if "lanes_tile_rows" in kw:
-            assert eng.layout.tile_rows == kw["lanes_tile_rows"]
+    for tile in (None, (8, 128), (16, 256), (48, 384)):
+        eng = engine.StencilEngine.for_shape("star2d1r", (40, 200),
+                                             tile=tile)
+        if tile is not None:
+            assert eng.layout.tile == tile
         got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 3),
                          np.float64)
-        err = np.abs(got - want).max() / max(1.0, np.abs(want).max())
-        assert err < 1e-6, (kw, err)
+        err = np.abs(got - want).max() / np.abs(want).max()
+        assert err < 1e-6, (tile, err)
 
 
-def test_autotune_params_cpu_plumbing(tmp_path, monkeypatch):
-    """autotune_params measures candidates and returns engine kwargs the
-    engine accepts (numbers are meaningless on CPU; plumbing only)."""
-    from lorastencil_tpu.utils import autotune
+def test_kernel_constants():
+    """The kernel's fused depth and block geometry are fixed constants
+    (measured on the card, PERF.md); the engine applies the depth only
+    on the kernel path."""
+    from lorastencil.ops import hopper2d
 
-    monkeypatch.setenv("LORASTENCIL_CACHE", str(tmp_path))
-    p1 = autotune.autotune_params("1d2r", (300_000,), steps=1)
-    assert "fused_steps" in p1
-    p2 = autotune.autotune_params("star2d1r", (32, 256), steps=1)
-    assert "algorithm" in p2 and "tile" in p2
-    # exactness contract: only exact-grade algorithms are candidates
-    assert all(a in ("vpu_roll", "mxu_hybrid1", "mxu_hybrid3")
-               for a in [c["algorithm"]
-                         for c in autotune.candidates_2d_params(
-                             shapes.get_shape("star2d1r"))])
-    eng = engine.StencilEngine.for_shape("star2d1r", (32, 256), **p2)
-    assert eng.algorithm in ("vpu_roll", "mxu_hybrid1", "mxu_hybrid3")
-    # cache hit returns the same dict without re-measuring
-    assert autotune.autotune_params("star2d1r", (32, 256), steps=1) == p2
+    assert 1 <= engine.KERNEL_FUSED_STEPS <= engine.MAX_KERNEL_FUSED_STEPS
+    tm, tn = hopper2d.TILE
+    assert tm % hopper2d.V == 0 and tn % 4 == 0
+    eng = engine.StencilEngine.for_shape("star2d1r", (40, 200))
+    assert eng.backend == "xla" and eng._fused_k() == 1
 
 
 @pytest.mark.parametrize("name", ["star3d1r", "box3d1r"])
-def test_3d_mxu_hybrid1_option(name):
-    """Per-plane col-MXU hybrid (exact-grade; measured slower than the
-    slice path at 256^3 -- kept as an explicit option)."""
+def test_3d_reflect_fused(name):
+    """3-D reflect boundaries through the plain step (fused, the
+    reference shapes are mirror-symmetric)."""
     spec = shapes.get_shape(name)
     interior = (6, 20, 150)
     g0 = reference.random_padded(spec, interior, seed=9)
-    eng = engine.StencilEngine.for_shape(name, interior,
-                                         algorithm="mxu_hybrid1")
+    eng = engine.StencilEngine.for_shape(name, interior, fused_steps=2,
+                                         boundary="reflect")
     got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 3), np.float64)
-    want = reference.run(g0, spec, 3)
+    want = reference.run_reflect(g0, spec, 3)
     assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-6
 
 
-def test_1d_custom_real_taps_mxu_lanes():
-    """Arbitrary real 1-D taps through the MXU lanes conv: the banded
-    matrix splits to up to 3 bf16 parts (exact-fp32-grade)."""
+def test_1d_custom_real_taps():
+    """Arbitrary real 1-D taps through the plain step."""
     taps = np.array([0.11, -0.7, 1.3, 0.25, 1.3, -0.7, 0.11])
     eng = engine.StencilEngine.for_coeffs(taps, (300_000,))
-    from lorastencil_tpu.ops.layout import Layout1DLanes
-
-    assert eng.algorithm == "mxu"
-    assert isinstance(eng.layout, Layout1DLanes)
     g0 = reference.random_padded(eng.spec, (300_000,), seed=6)
     got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 3), np.float64)
     want = reference.run(g0, eng.spec, 3)
     assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-6
 
 
-def test_1d_resident_lanes_path():
-    """Small 1-D grids take the VMEM-resident overlapped-lane kernel
-    (deep lane halo, fixup every h/r_eff steps, MXU conv)."""
-    from lorastencil_tpu.ops import pallas_1d
-    from lorastencil_tpu.ops.layout import Layout1DLanes
-
+def test_1d_small_grids_many_steps():
+    """Small 1-D grids over many steps (values kept small)."""
     for name, n in [("1d1r", 4096), ("1d2r", 4096), ("1d1r", 300)]:
         spec = shapes.get_shape(name)
         eng = engine.StencilEngine.for_shape(name, (n,))
-        assert isinstance(eng.layout, Layout1DLanes)
-        assert pallas_1d.fits_resident_lanes(eng.layout)
         g0 = reference.random_padded(spec, (n,), seed=33) * 1e-6
-        # steps beyond one fixup period (refresh = lane_halo // r_eff)
-        steps = eng.layout.lane_halo // max(
-            1, pallas_1d.effective_radius(spec)) * 2 + 3
-        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), steps),
+        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 11),
                          np.float64)
-        want = reference.run(g0, spec, steps)
+        want = reference.run(g0, spec, 11)
         err = np.abs(got - want).max() / max(1e-300, np.abs(want).max())
-        assert err < 1e-6, (name, n, steps, err)
+        assert err < 1e-6, (name, n, err)
 
 
-def test_1d_resident_lanes_ghost_falls_back():
-    """Periodic/reflect 1-D runs keep the ring-refresh path (the
-    resident-lanes kernel has no ghost support)."""
+def test_1d_periodic_small_grid():
+    """Periodic 1-D runs refresh the ring before every pass."""
     spec = shapes.get_shape("1d2r")
     rng = np.random.default_rng(5)
     g0 = rng.uniform(0, 0.01, (4096,))
@@ -637,52 +487,43 @@ def test_1d_resident_lanes_ghost_falls_back():
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-6
 
 
-@pytest.mark.parametrize("cap", ["0", "1"])
-def test_hybrid1_mixed_stream_assignment(cap, monkeypatch):
-    """LORASTENCIL_H1_MXU_TERMS caps how many terms ship MXU matrices;
-    capped-out terms run both axes on the VPU (exactness must hold for
-    any split)."""
-    monkeypatch.setenv("LORASTENCIL_H1_MXU_TERMS", cap)
-    for name in ("box2d3r", "star2d1r"):
-        spec = shapes.get_shape(name)
-        g0 = reference.random_padded(spec, (40, 200), seed=61)
-        eng = engine.StencilEngine.for_shape(name, (40, 200),
-                                             algorithm="mxu_hybrid1")
-        got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 4),
-                         np.float64)
-        want = reference.run(g0, spec, 4)
-        err = np.abs(got - want).max() / np.abs(want).max()
-        assert err < 1e-6, (name, cap, err)
+@pytest.mark.parametrize("name", ["box2d3r", "star2d1r"])
+def test_nondivisible_round_up_masked(name):
+    """Non-divisible interiors: tile round-up cells stay masked to zero
+    through fused passes."""
+    spec = shapes.get_shape(name)
+    g0 = reference.random_padded(spec, (41, 203), seed=61)
+    eng = engine.StencilEngine.for_shape(name, (41, 203), fused_steps=3,
+                                         tile=(16, 128))
+    got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), 7), np.float64)
+    want = reference.run(g0, spec, 7)
+    err = np.abs(got - want).max() / np.abs(want).max()
+    assert err < 1e-6, (name, err)
 
 
-def test_1d_resident_lanes_edges():
-    """Resident-lanes edges: bf16 state, arbitrary real taps (3-part
-    band split), and a grid smaller than one payload stride."""
-    from lorastencil_tpu.ops import pallas_1d
-    from lorastencil_tpu.ops.layout import Layout1DLanes
-
-    # bf16 state (1-part split; ~4e-3/step storage rounding)
+def test_1d_edges():
+    """1-D edges: bf16 state, arbitrary real taps, and a grid smaller
+    than one 128-cell row."""
+    # bf16 state (~4e-3/step storage rounding)
     spec = shapes.get_shape("1d2r")
     g0 = reference.random_padded(spec, (4096,), seed=8) * 1e-3
     eng = engine.StencilEngine.for_shape("1d2r", (4096,),
                                          dtype="bfloat16")
-    assert isinstance(eng.layout, Layout1DLanes) and eng.layout.resident
     got = np.asarray(
         eng.run(jnp.asarray(g0, jnp.bfloat16), 3).astype(jnp.float32),
         np.float64)
     want = reference.run(g0, spec, 3)
     assert np.abs(got - want).max() / np.abs(want).max() < 5e-2
 
-    # arbitrary real taps through the resident MXU conv
+    # arbitrary real taps
     taps = np.array([0.21, -0.4, 1.7, -0.4, 0.21])
     enc = engine.StencilEngine.for_coeffs(taps, (5000,))
-    assert enc.algorithm == "mxu" and enc.layout.resident
     g0 = reference.random_padded(enc.spec, (5000,), seed=9)
     got = np.asarray(enc.run(jnp.asarray(g0, jnp.float32), 7), np.float64)
     want = reference.run(g0, enc.spec, 7)
     assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-6
 
-    # fewer cells than one payload stride (single partial row)
+    # fewer cells than one row (single partial row)
     g0 = reference.random_padded(spec, (50,), seed=10)
     tiny = engine.StencilEngine.for_shape("1d2r", (50,))
     got = np.asarray(tiny.run(jnp.asarray(g0, jnp.float32), 4),
@@ -695,18 +536,11 @@ def test_1d_resident_lanes_edges():
     ("star2d1r", (512, 512)), ("box2d3r", (256, 384)),
     ("star2d3r", (200, 300)),
 ])
-def test_2d_resident_small_grid(name, interior, monkeypatch):
-    """The 2-D whole-grid-resident kernel (round-5 VERDICT item 6):
-    exact fp32 vs the fp64 reference, halo decays to zero.  OFF by
-    default -- the device sweep measured it slower than the tiled
-    pipeline at every size (the tiled whole run is already one jitted
-    program); enabled here via the byte-cap override."""
-    from lorastencil_tpu.ops import pallas_2d
-
-    monkeypatch.setattr(pallas_2d, "RESIDENT_2D_BYTES", 8 * 2**20)
+def test_2d_small_grid(name, interior):
+    """Small 2-D grids: fp32 vs the fp64 reference, halo decays to
+    zero; bf16 state too."""
     spec = shapes.get_shape(name)
     eng = engine.StencilEngine.for_shape(name, interior)
-    assert pallas_2d.fits_resident_2d(eng.layout, eng.dtype.itemsize)
     g0 = reference.random_padded(spec, interior, seed=31)
     for steps in (1, 5):
         got = np.asarray(eng.run(jnp.asarray(g0, jnp.float32), steps),
@@ -716,7 +550,7 @@ def test_2d_resident_small_grid(name, interior, monkeypatch):
         assert rel < 5e-6, (name, steps, rel)
     h = spec.halo
     assert np.all(got[: h[0]] == 0.0) and np.all(got[:, : h[1]] == 0.0)
-    # bf16 state rides the same kernel (fp32 compute, bf16 store)
+    # bf16 state (fp32 compute, bf16 store)
     engb = engine.StencilEngine.for_shape(name, interior,
                                           dtype="bfloat16")
     gotb = np.asarray(engb.run(jnp.asarray(g0, jnp.bfloat16), 3),
@@ -726,19 +560,9 @@ def test_2d_resident_small_grid(name, interior, monkeypatch):
             < 5e-2), name
 
 
-def test_2d_resident_gates(monkeypatch):
-    """Default OFF (measured slower than tiled on device, round 5);
-    with the cap raised, large grids, ghost boundaries, lossy mxu
-    tiers and the skewed path still keep the tiled kernels."""
-    from lorastencil_tpu.ops import pallas_2d
-
-    small = engine.StencilEngine.for_shape("star2d1r", (256, 256))
-    assert not pallas_2d.fits_resident_2d(small.layout, 4)  # default off
-    monkeypatch.setattr(pallas_2d, "RESIDENT_2D_BYTES", 8 * 2**20)
-    big = engine.StencilEngine.for_shape("star2d1r", (4096, 4096))
-    assert not pallas_2d.fits_resident_2d(big.layout, 4)
-    # ghost boundaries: the run must still match the periodic truth
-    # (the resident path would skip the ring refresh)
+def test_2d_periodic_ring_refresh():
+    """Ghost boundaries refresh the ring before every pass: the run
+    matches the periodic truth."""
     spec = shapes.get_shape("star2d1r")
     g0 = reference.random_padded(spec, (64, 256), seed=33)
     engg = engine.StencilEngine.for_shape("star2d1r", (64, 256),

@@ -1,17 +1,16 @@
 """fp64 tier: the reference is fp64 end-to-end with an absolute 1e-7
-one-step check (``/root/reference/src/2d/main.cu:318-326``,
-``src/1d/main.cu:17,166``, ``src/3d/main.cu:15,237``).  On CPU (x64 +
-interpret-mode kernels) the framework reproduces that regime exactly;
-on TPU fp64 is rejected with a clear error (no fp64 unit)."""
+one-step check (``reference/src/2d/main.cu:318-326``,
+``src/1d/main.cu:17,166``, ``src/3d/main.cu:15,237``).  With x64 the
+plain step reproduces that regime exactly, on the CPU as on the GPU."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lorastencil_tpu import engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.utils import reference
+from lorastencil import engine
+from lorastencil.models import shapes
+from lorastencil.utils import reference
 
 INTERIORS = {1: (300,), 2: (40, 200), 3: (6, 20, 150)}
 
@@ -50,12 +49,12 @@ def test_fp64_multi_step(name, x64):
     assert np.abs(got - want).max() / max(1.0, np.abs(want).max()) < 1e-13
 
 
-def test_fp64_vpu_roll(x64):
+def test_fp64_fused(x64):
     spec = shapes.get_shape("star2d1r")
     g0 = reference.random_padded(spec, (40, 200), seed=23)
     eng = engine.StencilEngine.for_shape(
-        "star2d1r", (40, 200), dtype="float64", algorithm="vpu_roll",
-        fused_steps=3)
+        "star2d1r", (40, 200), dtype="float64", fused_steps=3)
+    assert eng.backend == "xla"
     got = np.asarray(eng.run(jnp.asarray(g0, jnp.float64), 5), np.float64)
     want = reference.run(g0, spec, 5)
     assert np.abs(got - want).max() / np.abs(want).max() < 1e-13
@@ -78,8 +77,8 @@ def test_fp64_without_x64_raises():
 
 
 def test_fp64_cli_check(x64, capsys):
-    # --check --dtype float64 works off-TPU (VERDICT round 1, item 4)
-    from lorastencil_tpu import cli
+    # --check --dtype float64 (the reference's own regime)
+    from lorastencil import cli
 
     rc = cli.main(["star2d1r", "40", "200", "2", "--dtype", "float64",
                    "--check", "--repeats", "1"])

@@ -11,9 +11,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lorastencil_tpu import engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.utils import reference
+from lorastencil import engine
+from lorastencil.models import shapes
+from lorastencil.utils import reference
 
 INTERIORS = {1: (300,), 2: (24, 200), 3: (4, 16, 150)}
 

@@ -7,9 +7,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lorastencil_tpu import engine
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.utils import reference
+from lorastencil import engine
+from lorastencil.models import shapes
+from lorastencil.utils import reference
 
 
 def _padded(spec, interior, seed, scale=0.01):
@@ -103,7 +103,7 @@ def test_fp64_periodic_cpu_tier():
 def test_sharded_periodic_bf16():
     if jax.device_count() < 4:
         pytest.skip("needs the 8-virtual-device mesh")
-    from lorastencil_tpu.parallel import domain
+    from lorastencil.parallel import domain
 
     spec = shapes.get_shape("star2d1r")
     interior = (32, 512)

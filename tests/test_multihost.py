@@ -1,6 +1,6 @@
 """Multi-process mesh test: two CPU processes, four global devices, one
-sharded run checked against the fp64 ground truth (round-2 VERDICT
-item 3 -- converts PARITY.md's "jax.distributed-ready" claim to code).
+sharded run checked against the fp64 ground truth (PARITY.md's
+"jax.distributed-ready" claim, as code).
 
 Each subprocess runs tools/multihost_driver.py: ``jax.distributed``
 bootstrap, a (2, 2) mesh spanning both processes, the sharded 2-D

@@ -3,9 +3,9 @@
 import numpy as np
 import pytest
 
-from lorastencil_tpu import native
-from lorastencil_tpu.models import factorize, shapes
-from lorastencil_tpu.utils import reference
+from lorastencil import native
+from lorastencil.models import factorize, shapes
+from lorastencil.utils import reference
 
 needs_native = pytest.mark.skipif(
     not native.available(), reason="native library not built"

@@ -5,7 +5,7 @@ src/3d/main.cu:112-125), and decompositions must reconstruct them."""
 import numpy as np
 import pytest
 
-from lorastencil_tpu.models import factorize, shapes
+from lorastencil.models import factorize, shapes
 
 
 def test_1d_taps():
@@ -250,8 +250,8 @@ class TestFactorize:
     def test_fuse_coeffs_2d_matches_repeated_apply(self):
         # fusing k steps == applying the stencil k times, on a grid wide
         # enough that the interior center never sees the halo decay
-        from lorastencil_tpu.models.shapes import StencilSpec, SeparableTerm
-        from lorastencil_tpu.utils import reference
+        from lorastencil.models.shapes import StencilSpec, SeparableTerm
+        from lorastencil.utils import reference
 
         spec = shapes.get_shape("star2d1r")
         S2 = factorize.fuse_coeffs(spec.dense_coeffs(), 2)

@@ -6,9 +6,9 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 
-from lorastencil_tpu.models import shapes
-from lorastencil_tpu.ops import xla_ref
-from lorastencil_tpu.utils import reference
+from lorastencil.models import shapes
+from lorastencil.ops import xla_ref
+from lorastencil.utils import reference
 
 INTERIORS = {
     1: (96,),

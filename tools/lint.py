@@ -17,7 +17,7 @@ import os
 import sys
 
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-LIB_DIRS = ("lorastencil_tpu",)
+LIB_DIRS = ("lorastencil",)
 SOFT_DIRS = ("tests", "tools", "benchmarks", "examples")
 
 
